@@ -1,0 +1,48 @@
+"""Staleness-weighted cached aggregation (paper Eqs. 6-10), in PyTorch.
+
+Everything is f32 on the parameters' device.  ``aggregate_cache`` keeps
+the JAX package's tuple form: the weighted sum runs over the cached
+updates in cache order, one multiply-add per update, which is the
+reduction order of the JAX kernel (``sum(w * l for ...)``).
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from repro_torch.utils.tree import Params
+
+
+def staleness_weight(staleness, a: float = 0.5) -> torch.Tensor:
+    """Eq. 6: S(t - h_c) = (t - h_c + 1)^(-a)."""
+    return (torch.as_tensor(staleness, dtype=torch.float32) + 1.0) ** (-a)
+
+
+def stacked_staleness_weights(staleness, n_samples,
+                              a: float = 0.5) -> torch.Tensor:
+    """Eqs. 6-7 weights, normalized: S(t-h_c) n_c / sum_c S(t-h_c) n_c."""
+    s = staleness_weight(staleness, a)
+    wts = s * torch.as_tensor(n_samples, dtype=torch.float32,
+                              device=s.device)
+    return wts / torch.sum(wts)
+
+
+def aggregate_cache(w_global: Params, cache: List[Tuple[Params, int, int]],
+                    t: int, alpha: float, a: float = 0.5) -> Params:
+    """Full server aggregation step over cached (update, h_c, n_c) entries:
+    u = sum_c wts_c w_c (Eq. 7), alpha^t = alpha S(mean staleness)
+    (Eqs. 8-9), w^{t+1} = alpha^t u + (1 - alpha^t) w^t (Eq. 10)."""
+    device = next(iter(w_global.values())).device
+    staleness = torch.tensor([t - c[1] for c in cache], dtype=torch.float32,
+                             device=device)
+    n_samples = torch.tensor([c[2] for c in cache], dtype=torch.float32,
+                             device=device)
+    wts = stacked_staleness_weights(staleness, n_samples, a)
+    a_t = alpha * (torch.mean(staleness) + 1.0) ** (-a)
+    out = {}
+    for k in sorted(w_global):
+        u = sum(wts[i] * c[0][k] for i, c in enumerate(cache))
+        out[k] = a_t * u + (1.0 - a_t) * w_global[k]
+    return out
+

@@ -1,0 +1,25 @@
+from repro_torch.core.codecs import (CODECS, Codec, DenseRefCodec,
+                                     IdentityCodec, PackedBitstreamCodec,
+                                     resolve_codec)
+from repro_torch.fl.engine import (ChannelMeter, DeviceRegistry, FLEngine,
+                                   SerialTrainer)
+from repro_torch.fl.policies import POLICIES, CodecPolicy, make_policy
+from repro_torch.fl.protocols import (METHODS, STRATEGIES, ProtocolStrategy,
+                                      best_acc_within, make_setup, make_sim,
+                                      make_strategy, profile_compression,
+                                      run_method, time_to_acc)
+from repro_torch.fl.simulator import (LogEntry, ScenarioConfig, SimConfig,
+                                      TierSpec)
+from repro_torch.fl.tasks import TASKS, FLTask, get_task, register_task
+
+__all__ = [
+    "CODECS", "Codec", "DenseRefCodec", "IdentityCodec",
+    "PackedBitstreamCodec", "resolve_codec",
+    "ChannelMeter", "DeviceRegistry", "FLEngine", "SerialTrainer",
+    "POLICIES", "CodecPolicy", "make_policy",
+    "METHODS", "STRATEGIES", "ProtocolStrategy", "best_acc_within",
+    "make_setup", "make_sim", "make_strategy", "profile_compression",
+    "run_method", "time_to_acc",
+    "LogEntry", "ScenarioConfig", "SimConfig", "TierSpec",
+    "TASKS", "FLTask", "get_task", "register_task",
+]

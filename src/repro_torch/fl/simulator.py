@@ -1,0 +1,123 @@
+"""Simulation configuration and log records of the event-driven FL engine.
+
+The JAX package's module also holds the legacy monolithic ``FLSimulator``;
+the port keeps only what its engine needs: :class:`SimConfig` (the same
+fields and defaults), :class:`LogEntry`, the scenario knobs
+(:class:`ScenarioConfig`, :class:`TierSpec`) and ``tier_assignment``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.dynamic import CompressionSchedule
+from repro_torch.core.latency import ComputeConfig, WirelessConfig
+
+
+@dataclasses.dataclass
+class TierSpec:
+    """One heterogeneity tier: a fraction of the fleet with scaled compute
+    speed (multiplies the shifted-exponential coefficient a_k; >1 = slower)
+    and scaled link bandwidth (multiplies both directions' rates;
+    <1 = slower links)."""
+    fraction: float
+    compute_scale: float = 1.0
+    bandwidth_scale: float = 1.0
+    name: str = ""
+
+
+def tier_assignment(n_devices: int,
+                    tiers: Optional[List[TierSpec]]) -> np.ndarray:
+    """Contiguous deterministic tier indices by device id: tier ``i`` covers
+    the next ``round(fraction_i * n)`` devices and the last tier absorbs the
+    remainder."""
+    tier = np.zeros(n_devices, np.int64)
+    if not tiers:
+        return tier
+    start = 0
+    for i, t in enumerate(tiers):
+        stop = n_devices if i == len(tiers) - 1 else min(
+            n_devices, start + int(round(t.fraction * n_devices)))
+        tier[start:stop] = i
+        start = stop
+    return tier
+
+
+@dataclasses.dataclass
+class ScenarioConfig:
+    """Scenario-injection knobs, drawn from a dedicated RNG stream so that
+    an all-zero scenario leaves the engine's event stream unchanged.
+
+    * ``dropout_prob``: per-task probability the device leaves the fleet
+      mid-round (permanent); its slot is freed and re-dispatched.
+    * ``failure_prob``: per-task probability of a transient mid-round
+      crash; the device retries after ``retry_backoff`` simulated seconds.
+    * ``tiers``: heterogeneous compute/bandwidth ``TierSpec`` tiers,
+      assigned contiguously by device index (see ``tier_assignment``).
+    """
+    dropout_prob: float = 0.0
+    failure_prob: float = 0.0
+    retry_backoff: float = 1.0
+    tiers: Optional[List[TierSpec]] = None
+
+    @property
+    def active(self) -> bool:
+        return (self.dropout_prob > 0.0 or self.failure_prob > 0.0
+                or bool(self.tiers))
+
+
+@dataclasses.dataclass
+class SimConfig:
+    """Every knob of a simulated run, with the JAX package's names and
+    defaults (see its ``SimConfig`` docstring for each one).  This slice of
+    the port runs ``scheduler="heap"``, ``cohort_size=0``,
+    ``handler_mode="serial"`` and ``server="single"``; ``FLEngine`` raises
+    on any other value."""
+
+    method: str = "teasq"
+    task: str = "fmnist_cnn"
+    n_devices: int = 100
+    c_fraction: float = 0.1
+    gamma: float = 0.1
+    alpha: float = 0.6
+    a: float = 0.5
+    mu: float = 0.01
+    epochs: int = 2
+    batch_size: int = 40
+    lr: float = 0.08
+    # compression (used by teas/teaq/teastatic/teasq)
+    p_s: float = 1.0
+    p_q: int = 32
+    schedule: Optional[CompressionSchedule] = None
+    codec: str = "dense"
+    # per-device adaptive codec policy (repro_torch.fl.policies.POLICIES)
+    codec_policy: str = "static"
+    tier_points: Optional[List[Tuple[float, int]]] = None
+    # latency model
+    wireless: WirelessConfig = dataclasses.field(default_factory=WirelessConfig)
+    compute: ComputeConfig = dataclasses.field(default_factory=ComputeConfig)
+    # fedavg / fedasync
+    devices_per_round: int = 10
+    max_staleness: int = 4
+    seed: int = 0
+    # engine-only knobs
+    scheduler: str = "heap"
+    cohort_size: int = 0
+    cohort_channel_iters: int = 12   # threshold binary-search iterations
+    handler_mode: str = "serial"     # "serial" | "wave" (batched only)
+    server: str = "single"           # repro_torch.core.server.SERVERS backend
+    server_shards: int = 0           # sharded-server mesh width (0 = all)
+    scenario: Optional[ScenarioConfig] = None
+
+
+@dataclasses.dataclass
+class LogEntry:
+    time: float
+    round: int
+    accuracy: float
+    bytes_up: int
+    bytes_down: int
+    max_model_bytes_up: int
+    max_model_bytes_down: int

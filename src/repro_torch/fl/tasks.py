@@ -1,0 +1,80 @@
+"""Per-model FL task registry: the seam that keeps the protocol stack
+model-agnostic.
+
+An :class:`FLTask` is everything the engine and the protocol strategies
+need to train one model family under any protocol:
+
+* ``init_params(generator, device)`` -- model init (Alg. 1 line 1's w^0);
+* ``loss(params, batch)`` -- the device objective f_k (Eq. 5's loss term),
+  with ``batch = {"images": inputs, "labels": targets}``;
+* ``eval_metric(params, x, y)`` -- scalar in [0, 1], logged per round;
+* ``make_data(n_train, n_test, seed)`` -- the synthetic numpy dataset;
+* ``forward`` / ``features`` -- logits and penultimate representation.
+
+This slice registers the paper's ``fmnist_cnn``; the other families arrive
+with their slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+
+from repro_torch.data.synthetic import make_fmnist_like
+from repro_torch.models.cnn import (cnn_accuracy, cnn_features, cnn_forward,
+                                    cnn_loss, init_cnn)
+
+__all__ = ["FLTask", "TASKS", "get_task", "register_task"]
+
+# where the not-yet-ported tasks arrive
+_LATER = {name: "the slice of the other tasks and models"
+          for name in ("fmnist_mlp", "transformer_lm", "moe_lm", "ssm_lm")}
+
+
+@dataclasses.dataclass(frozen=True)
+class FLTask:
+    """One model family's FL bundle (see the module docstring)."""
+
+    name: str
+    init_params: Callable[..., Dict[str, Any]]
+    loss: Callable[..., Any]
+    eval_metric: Callable[..., Any]
+    make_data: Callable[[int, int, int], Dict[str, np.ndarray]]
+    forward: Optional[Callable[..., Any]] = None
+    features: Optional[Callable[..., Any]] = None
+
+
+TASKS: Dict[str, FLTask] = {}
+
+
+def register_task(task: FLTask) -> FLTask:
+    if task.name in TASKS:
+        raise ValueError(f"task {task.name!r} already registered")
+    TASKS[task.name] = task
+    return task
+
+
+def get_task(name: str) -> FLTask:
+    if name in _LATER:
+        raise NotImplementedError(
+            f"task {name!r} is not ported yet: it arrives with "
+            f"{_LATER[name]}")
+    try:
+        return TASKS[name]
+    except KeyError:
+        raise ValueError(f"unknown task {name!r}; "
+                         f"expected one of {sorted(TASKS)}") from None
+
+
+register_task(FLTask(
+    name="fmnist_cnn",
+    init_params=lambda generator, device="cpu": init_cnn(generator,
+                                                         device=device),
+    loss=cnn_loss,
+    eval_metric=cnn_accuracy,
+    make_data=lambda n_train, n_test, seed: make_fmnist_like(
+        n_train, n_test, seed=seed),
+    forward=cnn_forward,
+    features=cnn_features,
+))

@@ -1,0 +1,5 @@
+from repro_torch.kernels.bitpack import BitReader, pack_segments
+from repro_torch.kernels.ops import compress_roundtrip, fused_wire_encode
+
+__all__ = ["BitReader", "pack_segments", "compress_roundtrip",
+           "fused_wire_encode"]

@@ -1,0 +1,32 @@
+"""Public entry points of the port's kernels.
+
+Which version runs follows the tensors' device: the hand-written CUDA
+kernel for CUDA tensors, the plain PyTorch version for CPU tensors.  There
+is no fallback between them: on a CUDA tensor a kernel that fails to build
+or launch raises.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.kernels.fused_pack import pack_leaves
+from repro_torch.kernels.topk_quant import DEFAULT_BLOCK, dequant, topk_quant
+from repro_torch.utils.tree import leaves as tree_leaves
+
+
+def fused_wire_encode(tree: Any, p_s: float, p_q: int) -> bytes:
+    """One-pass packed wire encode of a parameter dict (or a leaf list, in
+    stream order): Alg. 3 serialization, bit-identical to
+    ``PackedBitstreamCodec``'s host pipeline with deterministic rounding;
+    ``len(result) == expected_pytree_wire_bytes``."""
+    return pack_leaves(tree_leaves(tree), p_s, p_q)
+
+
+def compress_roundtrip(x: torch.Tensor, p_s: float = 0.25, bits: int = 8,
+                       block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """Kernel-backed lossy compress -> decompress of a tensor."""
+    levels, scales = topk_quant(x.reshape(-1), p_s=p_s, bits=bits,
+                                block=block)
+    return dequant(levels, scales, bits, x.numel(), x.shape).to(x.dtype)
