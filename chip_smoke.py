@@ -21,9 +21,23 @@ Phases, in order; the script exits nonzero if any of them fails:
 5. The card against the CPU: one small run (8 devices, 640 samples) on
    ``cuda`` and on ``cpu`` from the same weights; the time, round and byte
    columns of the two histories must be equal.
-6. Kernel times against their plain versions and bounds, then one JSON
-   line of kernels, the card's ``nvidia-smi`` line, and the last line
-   ``{"ok": true, "device": {...}}``.
+6. Kernel times of A and B against their plain versions and bounds.
+7. Kernel C (``ssd_scan``) against its plain version: the JAX tests' grid
+   (chunk 32/64/128 x N 16/32/128, b and c in f32 and bf16), two ragged
+   chunk lengths, and the full-width cell of Mamba2-370M (L=256, P=64,
+   N=128, 64 cells); y, S and a, and the whole ``ops.ssd`` output and
+   state against the plain ``ssd_chunked``.
+8. The SSM serving path at full width: Mamba2-370M (48 layers, d_model
+   1024) from seeded random weights, a ``ContinuousBatcher`` with 4 slots
+   over 8 requests (prompt 512, gen 16) with every launch counter set to 0
+   before and read after, then a solo ``generate`` of each request; the
+   batcher's tokens must equal the solo ones (a difference passes only as
+   a near tie of the solo logits, top-2 margin below 1e-3).
+9. The card against the CPU for SSM serving, at the smoke config from the
+   same weights: prefill logits within 1e-4, greedy tokens equal.
+10. Kernel C's time at the admission shape against its plain version and
+   its bound; then one JSON line of kernels, the card's ``nvidia-smi``
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and runs from the root of a
 checkout.
@@ -42,7 +56,15 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_OPS_PER_S = 495e12      # H100 SXM, TF32 on the tensor cores
 ACC_TOL = 0.05                    # card vs CPU accuracy, absolute, per entry
+# kernel C against its plain version: f32 sums in another order (FFMA
+# tiles against cuBLAS); at the test sizes the JAX tests' own tolerance,
+# at full width (256-long sums of 128-long dot products) ten times that
+SSD_TOL = 1e-5
+SSD_TOL_FULL = 1e-4
+NEAR_TIE = 1e-3                   # top-2 logit margin a token flip may have
+LOGIT_TOL = 1e-4                  # SSM prefill logits, card against CPU
 
 
 def die(msg: str) -> None:
@@ -81,18 +103,39 @@ class Smoke:
     rehearsal passes the CPU and a smaller fleet)."""
 
     def __init__(self, dev="cuda", n_devices=100, n_train=60000,
-                 n_test=10000):
+                 n_test=10000, ssm_smoke=False):
         import numpy as np
         import torch
+        from repro_torch.configs.base import get_config, get_smoke_config
         self.np, self.torch = np, torch
         self.failures = []
-        self.kernels = {"fused_pack": {}, "topk_quant": {}}
+        self.kernels = {"fused_pack": {}, "topk_quant": {}, "ssd_scan": {}}
         self.dev = torch.device(dev)
         self.fleet = (n_devices, n_train, n_test)
+        # SSM serving: Mamba2-370M at full width (a CPU rehearsal passes
+        # ssm_smoke=True for the smoke config); 8 requests over 4 slots
+        self.ssm_cfg = (get_smoke_config if ssm_smoke else get_config)(
+            "mamba2-370m")
+        self.serve_shape = dict(slots=4, requests=8, gen=16,
+                                prompt_len=64 if ssm_smoke else 512)
 
     def sync(self):
         if self.dev.type == "cuda":
             self.torch.cuda.synchronize()
+
+    def card(self) -> str:
+        """The card's name and power limit (the device, on a rehearsal)."""
+        return nvidia_smi() if self.dev.type == "cuda" else str(self.dev)
+
+    def zero_counts(self):
+        from repro_torch.kernels import fused_pack, ssd_scan, topk_quant
+        fused_pack.LAUNCHES = topk_quant.LAUNCHES = ssd_scan.LAUNCHES = 0
+
+    def read_counts(self):
+        from repro_torch.kernels import fused_pack, ssd_scan, topk_quant
+        return {"fused_pack": fused_pack.LAUNCHES,
+                "topk_quant": topk_quant.LAUNCHES,
+                "ssd_scan": ssd_scan.LAUNCHES}
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -240,8 +283,7 @@ class Smoke:
                         mu=0.01, alpha=0.6, p_s=0.25, p_q=8, seed=0,
                         codec="packed")
         sim = make_sim(data, parts, w0, cfg, device=self.dev)
-        fused_pack.LAUNCHES = 0
-        topk_quant.LAUNCHES = 0
+        self.zero_counts()
         t0 = time.perf_counter()
         hist = sim.run(time_budget=1e9, max_rounds=5)
         self.sync()
@@ -250,8 +292,8 @@ class Smoke:
         wire = PackedBitstreamCodec(0.25, 8).encode(w)
         channel = {k: ops.compress_roundtrip(v) for k, v in w.items()}
         self.sync()
-        launches = {"fused_pack": fused_pack.LAUNCHES,
-                    "topk_quant": topk_quant.LAUNCHES}
+        launches = self.read_counts()
+        del launches["ssd_scan"]          # not on this path
         rounds = hist[-1].round
         print(f"   rounds: {rounds}, dispatches {sim.stats.dispatches}, "
               f"completions {sim.stats.completions}")
@@ -399,6 +441,340 @@ class Smoke:
               f"{DEFAULT_BLOCK}. No single PyTorch call computes either "
               "function: library_ms is null.")
 
+    # -- phase 7 ------------------------------------------------------------
+    def ssd_inputs(self, B, S, H, P, N, seed):
+        """The JAX tests' SSD inputs (tests/test_kernels.py) on the device."""
+        np, torch = self.np, self.torch
+        rng = np.random.RandomState(seed)
+        arrs = (rng.randn(B, S, H, P), rng.randn(B, S, N) * 0.3,
+                rng.randn(B, S, N) * 0.3, np.abs(rng.randn(B, S, H)) * 0.1,
+                -np.abs(rng.randn(B, S, H)) * 0.05)
+        return [torch.from_numpy(a.astype(np.float32)).to(self.dev)
+                for a in arrs]
+
+    def ssd_cells(self, G, heads, L, P, N, seed, dtype):
+        """Random intra-chunk cells: xb (G, L, P), b and c (G // heads, L,
+        N) in ``dtype``, cum (G, 1, L) a decreasing cumulative log-decay."""
+        np, torch = self.np, self.torch
+        rng = np.random.RandomState(seed)
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.dev)
+        xb = t(rng.randn(G, L, P))
+        b = t(rng.randn(G // heads, L, N) * 0.3).to(dtype)
+        c = t(rng.randn(G // heads, L, N) * 0.3).to(dtype)
+        cum = t(np.cumsum(-np.abs(rng.randn(G, 1, L)) * 0.05, axis=-1))
+        return xb, b, c, cum
+
+    def kernel_c(self):
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import ssd_scan as K
+        from repro_torch.models.ssm import ssd_chunked
+        cfg = self.ssm_cfg
+        # largest |kernel - plain| at the test sizes and at full width, and
+        # largest |ops.ssd - ssd_chunked| (the whole SSD against its oracle)
+        worst = {"test sizes": 0.0, "full width": 0.0, "ops.ssd": 0.0}
+
+        def close(got, want, tol, where, key):
+            err = float((got - want).abs().max())
+            worst[key] = max(worst[key], err)
+            self.expect(torch.allclose(got, want, atol=tol, rtol=tol),
+                        f"kernel C {where}: max abs err {err}")
+
+        def cells(G, heads, L, P, N, seed, dtype, tol, key):
+            xb, b, c, cum = self.ssd_cells(G, heads, L, P, N, seed, dtype)
+            got = K.ssd_intra_chunk(xb, b, c, cum, heads=heads)
+            want = K.ssd_intra_chunk_plain(xb, b, c, cum, heads=heads)
+            where = f"(G={G}, heads={heads}, L={L}, P={P}, N={N}, {dtype})"
+            for name, g, w in zip(("y", "S", "a"), got, want):
+                self.expect(bool(torch.isfinite(g).all()),
+                            f"kernel C {name} {where} not finite")
+                close(g, w, tol, f"{name} {where}", key)
+
+        cases = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for chunk in (32, 64, 128):
+                for N in (16, 32, 128):
+                    # the intra-chunk step: B=2, H=2 cells of the JAX tests
+                    cells(2 * 2 * (256 // chunk), 2, chunk, 64, N, chunk + N,
+                          dtype, SSD_TOL, "test sizes")
+                    # the whole SSD around it, against the plain oracle
+                    xh, b, c, dt, la = self.ssd_inputs(2, 256, 2, 64, N,
+                                                       chunk + N)
+                    b, c = b.to(dtype), c.to(dtype)
+                    y, h = ops.ssd(xh, b, c, dt, la, chunk)
+                    y_ref, h_ref = ssd_chunked(xh, b, c, dt, la, chunk)
+                    where = f"ops.ssd (chunk={chunk}, N={N}, {dtype})"
+                    close(y, y_ref, SSD_TOL, "y of " + where, "ops.ssd")
+                    close(h, h_ref, SSD_TOL, "state of " + where, "ops.ssd")
+                    cases += 1
+            # ragged chunk lengths and narrow heads
+            cells(6, 3, 12, 64, 32, 5, dtype, SSD_TOL, "test sizes")
+            cells(4, 2, 200, 16, 8, 6, dtype, SSD_TOL, "test sizes")
+            # the full-width cell: one 512-token prompt of Mamba2-370M
+            L, P, N, H = (cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state,
+                          cfg.ssm_heads)
+            cells(2 * H, H, L, P, N, 7, dtype, SSD_TOL_FULL, "full width")
+            cases += 3
+        print(f"   {cases} cases: y, S and a of the kernel within "
+              f"{SSD_TOL} (atol = rtol) of the plain version at the test "
+              f"sizes, within {SSD_TOL_FULL} at full width "
+              f"(L={cfg.ssm_chunk}, P={cfg.ssm_head_dim}, "
+              f"N={cfg.ssm_state}, G={2 * cfg.ssm_heads}); ops.ssd output "
+              f"and state within {SSD_TOL} of ssd_chunked; max abs err "
+              f"of the kernel against its plain version "
+              f"{worst['test sizes']:.3g} (test sizes), "
+              f"{worst['full width']:.3g} (full width); of ops.ssd against "
+              f"ssd_chunked {worst['ops.ssd']:.3g}")
+        self.kernels["ssd_scan"].update(
+            max_abs_err=max(worst["test sizes"], worst["full width"]),
+            checked_cases=cases)
+
+    # -- phase 8 ------------------------------------------------------------
+    def margins(self, params, prompt, toks):
+        """The solo run's top-2 logit margin before each generated token,
+        replayed through prefill and decode_step along ``toks``."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        cfg = self.ssm_cfg
+        with torch.no_grad():
+            logits, cache = T.prefill(params, {"tokens": torch.as_tensor(
+                prompt[None], device=self.dev)}, cfg)
+            out = []
+            for i, t in enumerate(toks):
+                top = logits[0, -1].topk(2).values
+                out.append(float(top[0] - top[1]))
+                logits, cache = T.decode_step(params, torch.tensor(
+                    [[t]], device=self.dev), len(prompt) + i, cfg, cache)
+        return out
+
+    def timed(self, fn, reps):
+        """Host milliseconds per call of ``fn`` (synchronized)."""
+        self.sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        self.sync()
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    def serve_ssm(self):
+        np, torch = self.np, self.torch
+        from repro_torch.launch.serve import ContinuousBatcher, generate
+        from repro_torch.models import transformer as T
+        from repro_torch.utils.tree import tree_map
+        cfg, shp = self.ssm_cfg, self.serve_shape
+        t0 = time.perf_counter()
+        params = T.init_model(
+            cfg, torch.Generator(device=self.dev).manual_seed(0), self.dev)
+        self.sync()
+        n_params = sum(a.numel() for a in _leaves(params))
+        print(f"   {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.ssm_heads} heads x P={cfg.ssm_head_dim}, "
+              f"N={cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}: "
+              f"{n_params} parameters, seeded random "
+              f"({time.perf_counter() - t0:.1f} s)")
+        rng = np.random.RandomState(1)
+        prompts = [rng.randint(0, cfg.vocab, shp["prompt_len"])
+                   for _ in range(shp["requests"])]
+        cache_len = shp["prompt_len"] + shp["gen"]
+        # warm the paths once (cuBLAS plans, allocator) outside the window
+        generate(params, cfg, prompts[0][None], 2)
+        self.sync()
+
+        self.zero_counts()
+        cb = ContinuousBatcher(params, cfg, slots=shp["slots"],
+                               cache_len=cache_len)
+        t0 = time.perf_counter()
+        outs, lat = cb.run(prompts, shp["gen"])
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = self.read_counts()
+        toks = sum(len(o) for o in outs)
+        print(f"   launches on the serving path: {launches}")
+        print(f"   continuous batching: {shp['requests']} requests x gen "
+              f"{shp['gen']}, prompt {shp['prompt_len']}, {shp['slots']} "
+              f"slots, {cb.steps} decode steps in {wall:.3f} s: "
+              f"{toks / wall:.1f} tok/s over the window, its prefills "
+              f"included, p50 latency "
+              f"{np.percentile(lat, 50) * 1e3:.1f} ms [{self.card()}]")
+        self.expect(launches["ssd_scan"] >= cfg.n_layers * shp["requests"]
+                    if self.dev.type == "cuda" else
+                    launches["ssd_scan"] == 0,
+                    f"kernel C launches on the serving path: {launches}")
+
+        solo = [generate(params, cfg, p[None], shp["gen"])[0, len(p):]
+                .tolist() for p in prompts]
+        flips = 0
+        for i, (got, want) in enumerate(zip(outs, solo)):
+            self.expect(len(got) == shp["gen"] and
+                        all(0 <= t < cfg.vocab for t in got),
+                        f"request {i}: tokens {got}")
+            if got == want:
+                continue
+            k = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            margin = self.margins(params, prompts[i], want)[k]
+            print(f"   request {i}: batcher and solo differ first at token "
+                  f"{k}; solo top-2 margin there {margin:.3g}")
+            self.expect(margin < NEAR_TIE,
+                        f"request {i}: batcher {got} != solo {want}, and "
+                        f"the solo margin {margin} is no near tie")
+            flips += 1
+        print(f"   batcher tokens equal solo generate on "
+              f"{len(outs) - flips} of {len(outs)} requests; near-tie "
+              f"flips (solo top-2 margin < {NEAR_TIE}): {flips}")
+
+        # the two halves of the loop, timed apart
+        one = torch.as_tensor(prompts[0][None], device=self.dev)
+        ms_prefill, (logits, cache) = self.timed(
+            lambda: T.prefill(params, {"tokens": one}, cfg), 3)
+        self.expect(bool(torch.isfinite(logits).all()),
+                    "prefill logits not finite")
+        tok = torch.zeros((shp["slots"], 1), dtype=torch.int32,
+                          device=self.dev)
+        state = tree_map(
+            lambda a: a.repeat((1, shp["slots"]) + (1,) * (a.dim() - 2)),
+            cache)
+        ms_decode, (logits, _) = self.timed(
+            lambda: T.decode_step(params, tok, 0, cfg, state), 10)
+        self.expect(bool(torch.isfinite(logits).all()),
+                    "decode logits not finite")
+        decode_tok_s = shp["slots"] / ms_decode * 1e3
+        print(f"   prefill {ms_prefill:.2f} ms per admission (1 x "
+              f"{shp['prompt_len']} tokens), decode {ms_decode:.2f} ms per "
+              f"step ({shp['slots']} slots): {decode_tok_s:.1f} tok/s "
+              f"decode only [{self.card()}]")
+        if self.dev.type == "cuda":
+            for name, fn, wall_ms in (
+                    ("prefill", lambda: T.prefill(params, {"tokens": one},
+                                                  cfg), ms_prefill),
+                    ("decode step", lambda: T.decode_step(params, tok, 0,
+                                                          cfg, state),
+                     ms_decode)):
+                self.device_time(name, fn, wall_ms)
+        self.kernels["ssd_scan"]["launches"] = launches["ssd_scan"]
+        self.serving = {"tok_per_s": toks / wall, "prefill_ms": ms_prefill,
+                        "decode_ms": ms_decode,
+                        "decode_tok_per_s": decode_tok_s, "flips": flips}
+
+    def device_time(self, name, fn, wall_ms):
+        """Kernel time on the card in one call of ``fn``, from
+        torch.profiler, against the call's unprofiled wall time: the
+        device's busy share, and the kernels that take the most of it."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            self.sync()
+        # the device's own events (kernels, copies); the CPU ops that
+        # launched them carry the same time again
+        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+        busy = sum(r[0] for r in rows)
+        if not rows:
+            print(f"   {name}: the profiler saw no device time (device "
+                  f"busy share not measured)")
+            return
+        print(f"   {name}: {busy:.3f} ms of kernels on the card in "
+              f"{wall_ms:.2f} ms of wall: device busy "
+              f"{busy / wall_ms:.1%}, idle {1 - busy / wall_ms:.1%}; "
+              f"{sum(r[1] for r in rows)} kernel launches; top:")
+        for ms, n, key in rows[:6]:
+            print(f"     {ms:9.3f} ms  {n:5d} x  {key[:90]}")
+
+    # -- phase 9 ------------------------------------------------------------
+    def ssm_card_vs_cpu(self):
+        np, torch = self.np, self.torch
+        from repro_torch.configs.base import get_smoke_config
+        from repro_torch.launch.serve import generate
+        from repro_torch.models import transformer as T
+        from repro_torch.utils.tree import tree_map
+        cfg = get_smoke_config("mamba2-370m")
+        p_cpu = T.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
+        p_dev = tree_map(lambda a: a.to(self.dev), p_cpu)
+        toks = np.random.RandomState(4).randint(0, cfg.vocab, (2, 128))
+        lg = {}
+        for name, p in (("card", p_dev), ("cpu", p_cpu)):
+            with torch.no_grad():
+                lg[name], _ = T.prefill(p, {"tokens": torch.as_tensor(
+                    toks, device=p["embed"].device)}, cfg)
+        d = float((lg["card"].cpu() - lg["cpu"]).abs().max())
+        self.expect(d <= LOGIT_TOL, f"prefill logits differ by {d}")
+        g_dev = generate(p_dev, cfg, toks[:, :64], 12).cpu()
+        g_cpu = generate(p_cpu, cfg, toks[:, :64], 12)
+        self.expect(torch.equal(g_dev, g_cpu),
+                    f"greedy tokens differ:\n{g_dev[:, 64:]}\n"
+                    f"{g_cpu[:, 64:]}")
+        print(f"   {cfg.name}: prefill logits (2 x 128 tokens) within "
+              f"{d:.3g} (tolerance {LOGIT_TOL}); greedy tokens of 2 x 12 "
+              f"equal")
+
+    # -- phase 10 -----------------------------------------------------------
+    def timings_c(self):
+        torch = self.torch
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ssd_scan import ssd_intra_chunk_plain
+        cfg = self.ssm_cfg
+        lib = build.library()
+        # the admission prefill: one row of a 512-token prompt, all layers
+        # alike: G = 1 x 2 chunks x 32 heads
+        H, L, P, N = (cfg.ssm_heads, cfg.ssm_chunk, cfg.ssm_head_dim,
+                      cfg.ssm_state)
+        G = 2 * H
+        xb, b, c, cum = self.ssd_cells(G, H, L, P, N, 8, torch.float32)
+        y = torch.empty((G, L, P), device=self.dev)
+        s = torch.empty((G, N, P), device=self.dev)
+        a = torch.empty((G, 1), device=self.dev)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run():
+            build.check(lib.ssd_scan_launch(
+                xb.data_ptr(), b.data_ptr(), c.data_ptr(), cum.data_ptr(), 0,
+                G, H, L, P, N, y.data_ptr(), s.data_ptr(), a.data_ptr(),
+                stream), "ssd_scan")
+
+        ms = time_cuda(run)
+        plain = time_cuda(lambda: ssd_intra_chunk_plain(xb, b, c, cum, H),
+                          iters=10)
+        nbytes = 4 * (G * L * P + 2 * (G // H) * L * N + G * L
+                      + G * L * P + G * N * P + G)
+        # what the function needs: C B^T once per (batch, chunk) and only on
+        # and below the diagonal, the masked product per cell on the same
+        # triangle, and the chunk state per cell (the kernel itself
+        # recomputes C B^T for every head; the JAX kernel counts the full
+        # square, 2L^2N + 2L^2P + 2LNP per cell)
+        nops = ((G // H) * L * (L + 1) * N + G * L * (L + 1) * P
+                + G * 2 * L * N * P)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
+        t_tf32 = max(t_bytes, nops / PEAK_TF32_OPS_PER_S * 1e3)
+        self.kernels["ssd_scan"].update({
+            "name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:58", "ms": ms,
+            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "bytes": nbytes, "operations": nops,
+            "bound_tf32_ms": t_tf32})
+        print(f"   ssd_scan at the admission shape (G={G}, L={L}, P={P}, "
+              f"N={N}): {ms * 1e3:.1f} us kernel, {plain * 1e3:.1f} us "
+              f"plain, bound {max(t_bytes, t_ops) * 1e3:.2f} us at f32 "
+              f"({t_tf32 * 1e3:.2f} us at TF32), {nbytes} bytes, {nops} "
+              f"ops; {cfg.n_layers * ms:.2f} ms per admission "
+              f"[{self.card()}]")
+        print("   No single PyTorch call computes this function: library_ms "
+              "is null.")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
 
 def main() -> int:
     try:
@@ -428,11 +804,17 @@ def main() -> int:
     if "4. main path: TEASQ on the paper's CNN, 100 devices, on cuda" \
             not in s.failures:
         s.phase("6. kernel times", s.timings)
+    s.phase("7. kernel C (ssd_scan) against its plain version", s.kernel_c)
+    s.phase("8. SSM serving: Mamba2-370M at full width, on cuda",
+            s.serve_ssm)
+    s.phase("9. the card against the CPU, SSM serving", s.ssm_card_vs_cpu)
+    s.phase("10. kernel C time", s.timings_c)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failures:
         die("failed phases: " + "; ".join(s.failures))
     print(json.dumps({"kernels": [s.kernels["fused_pack"],
-                                  s.kernels["topk_quant"]]}))
+                                  s.kernels["topk_quant"],
+                                  s.kernels["ssd_scan"]]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,12 @@ or launch raises.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.kernels.fused_pack import pack_leaves
+from repro_torch.kernels.ssd_scan import ssd_chunked_kernel
 from repro_torch.kernels.topk_quant import DEFAULT_BLOCK, dequant, topk_quant
 from repro_torch.utils.tree import leaves as tree_leaves
 
@@ -30,3 +31,11 @@ def compress_roundtrip(x: torch.Tensor, p_s: float = 0.25, bits: int = 8,
     levels, scales = topk_quant(x.reshape(-1), p_s=p_s, bits=bits,
                                 block=block)
     return dequant(levels, scales, bits, x.numel(), x.shape).to(x.dtype)
+
+
+def ssd(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,
+        la: torch.Tensor, chunk: int, init_state: Optional[torch.Tensor] = None):
+    """Mamba2 SSD with the intra-chunk step on kernel C: xh (B, S, H, P), b
+    and c (B, S, N), dt and la (B, S, H) -> y (B, S, H, P), final state
+    (B, H, P, N)."""
+    return ssd_chunked_kernel(xh, b, c, dt, la, chunk, init_state)

@@ -8,7 +8,7 @@ parameter dict in the port goes through :func:`leaves` / :func:`unflatten`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,17 +29,35 @@ def unflatten(names: Sequence[str], values: Sequence[Any]) -> Dict[str, Any]:
     return dict(zip(names, values))
 
 
-def from_numpy(params: Dict[str, Any], device) -> Params:
-    """The JAX package's parameters (any array-likes) as the port's: f32
-    tensors on ``device``, same keys, same layouts."""
-    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+def tree_map(fn: Callable, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``fn`` applied to every leaf of a nested dict, same structure."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def tree_stack(trees: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """Nested dicts of one structure -> one dict of their leaves stacked on
+    a new leading axis (the layer-stacked layout of the JAX package)."""
+    first = trees[0]
+    return {k: tree_stack([t[k] for t in trees])
+            if isinstance(first[k], dict)
+            else torch.stack([t[k] for t in trees]) for k in first}
+
+
+def from_numpy(params: Dict[str, Any], device) -> Dict[str, Any]:
+    """The JAX package's parameters (a dict, nested or flat, of any
+    array-likes) as the port's: f32 tensors on ``device``, same keys, same
+    layouts."""
+    return {k: from_numpy(v, device) if isinstance(v, dict) else
+            torch.from_numpy(np.array(v, np.float32)).to(device)
             for k, v in params.items()}
 
 
-def to_numpy(params: Params) -> Dict[str, np.ndarray]:
-    """The port's parameters as host numpy arrays (the JAX package's
-    inputs), same keys, same layouts."""
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+def to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's parameters (a dict, nested or flat) as host numpy arrays
+    (the JAX package's inputs), same keys, same layouts."""
+    return {k: to_numpy(v) if isinstance(v, dict) else
+            v.detach().cpu().numpy() for k, v in params.items()}
 
 
 def resolve_device(device: Optional[Any] = None) -> torch.device:

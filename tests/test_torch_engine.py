@@ -175,7 +175,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 18, names\n"
+        "assert len(names) >= 35, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -185,19 +185,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_chip_smoke_phases_rehearse_on_cpu():
     """chip_smoke.py's comparison phases run on CPU tensors at a small
-    fleet (kernel and plain version are then both the plain version): the
+    fleet and Mamba2-370M's smoke config (kernel and plain version are then
+    both the plain version, and the serving path launches no kernel): the
     script's own checks, kept from rotting between card runs."""
     sys.path.insert(0, REPO)
     try:
         import chip_smoke
     finally:
         sys.path.remove(REPO)
-    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500)
-    for phase in (smoke.kernel_a, smoke.kernel_b, smoke.card_vs_cpu):
+    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500,
+                             ssm_smoke=True)
+    for phase in (smoke.kernel_a, smoke.kernel_b, smoke.card_vs_cpu,
+                  smoke.kernel_c, smoke.serve_ssm, smoke.ssm_card_vs_cpu):
         smoke.phase(phase.__name__, phase)
     assert smoke.failures == []
     assert smoke.kernels["fused_pack"]["max_abs_err"] == 0.0
     assert smoke.kernels["topk_quant"]["checked_cases"] == 8
+    assert smoke.kernels["ssd_scan"]["checked_cases"] == 24
+    assert smoke.kernels["ssd_scan"]["launches"] == 0
+    assert smoke.serving["flips"] == 0
 
 
 @pytest.mark.cuda
