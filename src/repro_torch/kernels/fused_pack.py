@@ -13,8 +13,11 @@ Two versions of the same function, bit-identical to each other and to the
 JAX package's ``fused_pack_leaf`` / ``pack_leaves_host``:
 
 * :func:`fused_pack_plain` -- plain PyTorch, on any device;
-* the CUDA kernel ``csrc/fused_pack.cu`` (one CTA per leaf, fields ORed
-  into one zeroed word buffer).
+* the CUDA kernel ``csrc/fused_pack.cu``: one launch for the dict; a leaf
+  of more than ``BIG_LEAF`` elements is cut into ``CLUSTER`` slices, one
+  per CTA of a thread-block cluster, which select by 8-bit radix passes
+  over summed histograms and rank survivors by a cluster-wide exclusive
+  prefix; smaller leaves take one CTA each (:func:`launch_rows`).
 
 :func:`fused_pack` picks by device: the kernel for CUDA tensors (a build or
 launch failure raises), the plain version for CPU tensors.
@@ -35,6 +38,11 @@ from repro_torch.kernels.bitpack import words_to_bytes
 # CUDA tensors); set to 0 to count a window
 LAUNCHES = 0
 
+# the kernel's cluster size (kCluster in csrc/fused_pack.cu), and the
+# largest leaf that takes one CTA alone
+CLUSTER = 8
+BIG_LEAF = 16384
+
 
 def stream_layout(sizes: Sequence[int], p_s: float,
                   p_q: int) -> Tuple[List[int], int]:
@@ -45,6 +53,28 @@ def stream_layout(sizes: Sequence[int], p_s: float,
         offs.append(pos)
         pos += expected_tensor_wire_bits(int(n), p_s, p_q)
     return offs, pos
+
+
+def launch_rows(sizes: Sequence[int], p_s: float,
+                p_q: int) -> List[List[int]]:
+    """The kernel's CTAs, one row each -- shape-only: [leaf index, n, k,
+    stream bit offset, index bits, slice start, slice length, CTAs of the
+    leaf].  A leaf of more than ``BIG_LEAF`` elements takes a whole cluster
+    (``CLUSTER`` contiguous slices, the last one shorter where n is ragged),
+    listed first; the others take one CTA each, and idle rows (leaf index
+    and n = -1) pad the last cluster."""
+    offs, _ = stream_layout(sizes, p_s, p_q)
+    big, small = [], []
+    for i, (n, off) in enumerate(zip(sizes, offs)):
+        head = [i, n, topk_count(n, p_s), off, index_bits(n)]
+        if n > BIG_LEAF:
+            part = -(-n // CLUSTER)
+            big += [head + [min(n, r * part), max(0, min(part, n - r * part)),
+                            CLUSTER] for r in range(CLUSTER)]
+        else:
+            small.append(head + [0, n, 1])
+    small += [[-1, -1, 0, 0, 0, 0, 0, 1]] * (-len(small) % CLUSTER)
+    return big + small
 
 
 def _check_leaves(leaves: Sequence[torch.Tensor]) -> torch.device:
@@ -128,22 +158,29 @@ def fused_pack_plain(leaves: Sequence[torch.Tensor], p_s: float,
     return words[:nw].to(torch.int32)
 
 
+def launch_meta(leaves: Sequence[torch.Tensor], p_s: float,
+                p_q: int) -> torch.Tensor:
+    """:func:`launch_rows` with each leaf index replaced by the leaf's
+    data pointer (the leaves must be contiguous), as an int64 tensor on the
+    leaves' device."""
+    rows = launch_rows([x.numel() for x in leaves], p_s, p_q)
+    return torch.tensor([[leaves[r[0]].data_ptr() if r[0] >= 0 else 0]
+                         + r[1:] for r in rows],
+                        dtype=torch.int64).to(leaves[0].device)
+
+
 def _fused_pack_cuda(leaves: Sequence[torch.Tensor], p_s: float,
                      p_q: int) -> torch.Tensor:
     from repro_torch.kernels.build import check, library
     global LAUNCHES
     device = leaves[0].device
     leaves = [x.contiguous() for x in leaves]
-    sizes = [x.numel() for x in leaves]
-    offs, total = stream_layout(sizes, p_s, p_q)
-    meta = torch.tensor(
-        [[x.data_ptr(), n, topk_count(n, p_s), off, index_bits(n)]
-         for x, n, off in zip(leaves, sizes, offs)],
-        dtype=torch.int64).to(device)
+    meta = launch_meta(leaves, p_s, p_q)
+    _, total = stream_layout([x.numel() for x in leaves], p_s, p_q)
     words = torch.zeros((total + 31) // 32 + 1, dtype=torch.int32,
                         device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = library().fused_pack_launch(meta.data_ptr(), len(leaves),
+    err = library().fused_pack_launch(meta.data_ptr(), meta.shape[0],
                                       words.data_ptr(), int(p_q), stream)
     check(err, "fused_pack kernel")
     LAUNCHES += 1

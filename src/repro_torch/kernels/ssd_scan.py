@@ -11,12 +11,14 @@ batch row, one head, one chunk of ``L`` positions):
 The mask sits in the exponent: above the diagonal ``cum_i - cum_j`` is a
 positive log-decay whose ``exp`` overflows.
 
-Two versions of the same function, within f32 rounding of each other and
-of the JAX package's ``ssd_intra_chunk``:
+Two versions of the same function, within the f32 tolerances of each
+other and of the JAX package's ``ssd_intra_chunk``:
 
 * :func:`ssd_intra_chunk_plain` -- plain PyTorch, on any device;
-* the CUDA kernel ``csrc/ssd_scan.cu`` (FFMA tiles in shared memory, one
-  CTA per 64-row tile of ``y`` plus one per cell for ``S`` and ``a``).
+* the CUDA kernel ``csrc/ssd_scan.cu``: TF32 warpgroup MMAs with split
+  TF32 (hi + lo parts, three products each), one CTA per 64-row tile of
+  ``y`` and head group, forming ``C Bᵀ`` once for the heads of its group,
+  plus one CTA per head group for ``S`` and ``a``.
 
 :func:`ssd_intra_chunk` picks by device: the kernel for CUDA tensors (a
 build or launch failure raises), the plain version for CPU tensors.

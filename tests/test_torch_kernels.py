@@ -17,7 +17,9 @@ from repro.kernels.fused_pack import fused_pack_leaf as jax_fused_pack_leaf
 from repro.kernels.fused_pack import pack_leaves_host
 from repro.kernels.ops import compress_roundtrip as jax_compress_roundtrip
 from repro.kernels.topk_quant import topk_quant as jax_topk_quant
+from repro_torch.core.compression import index_bits, topk_count
 from repro_torch.kernels import fused_pack as tfp
+from repro_torch.kernels.bitpack import words_to_bytes
 from repro_torch.kernels import topk_quant as ttq
 from repro_torch.kernels.fused_pack import (concat_bitstreams,
                                             fused_pack_leaf, fused_pack_plain,
@@ -118,15 +120,219 @@ def test_fused_pack_wrapper_runs_the_plain_version_on_cpu():
 @pytest.mark.cuda
 def test_fused_pack_kernel_matches_plain_on_card(card):
     tree = _cnn_tree(4)
-    xs = [torch.from_numpy(tree[k]).to(card) for k in sorted(tree)]
+    rng = np.random.RandomState(14)
+    # beside the CNN's leaves: a leaf of fc1's size, a ragged one (its last
+    # slice one shorter), one whose ties at T span every slice, and a
+    # ragged, tie-heavy one whose slices of 50,001 are more than a CTA's
+    # shared memory holds (kMaxSlice in csrc/fused_pack.cu)
+    tree["zz_big"] = (rng.randn(200704) * 0.1).astype(np.float32)
+    tree["zz_ragged"] = rng.randn(200703).astype(np.float32)
+    tree["zz_ties"] = rng.choice(np.float32([0.5, -0.5, 0.25, 0.0]), 60001)
+    tree["zz_huge"] = (np.round(rng.randn(400003) * 8) / 8).astype(
+        np.float32)
+    leaves = [tree[k] for k in sorted(tree)]
+    xs = [torch.from_numpy(v).to(card) for v in leaves]
     for p_s, p_q in ((0.25, 8), (0.01, 4), (1.0, 16), (0.5, 32)):
         before = tfp.LAUNCHES
         got = tfp.fused_pack(xs, p_s, p_q)
         assert tfp.LAUNCHES == before + 1
         assert torch.equal(got, fused_pack_plain(xs, p_s, p_q))
         _, total = stream_layout([x.numel() for x in xs], p_s, p_q)
-        want = pack_leaves_host([tree[k] for k in sorted(tree)], p_s, p_q)
-        assert words_to_stream(got, total) == want
+        assert words_to_stream(got, total) == pack_leaves_host(leaves, p_s,
+                                                               p_q)
+
+
+# The CUDA kernel's decomposition, emulated in numpy: a leaf cut into
+# slices (one per CTA of a cluster), each slice cut into thread runs; a
+# 4-pass 8-bit radix select over summed slice histograms; tie ranks,
+# survivor ranks and previous survivors from exclusive prefixes over
+# per-run and per-slice totals; each slice's value and delta fields
+# assembled in a window of words whose interior is stored and whose two
+# boundary words are ORed.  Test-only: the port ships the CUDA kernel.
+def _excl(v, op=np.add, init=0):
+    out, acc = [], init
+    for e in v:
+        out.append(acc)
+        acc = op(acc, e)
+    return out, acc
+
+
+def _binary_search_t(p, k):
+    """The JAX kernel's 31-step greedy search for the k-th largest."""
+    t = 0
+    for bit in range(30, -1, -1):
+        if int((p >= (t | (1 << bit))).sum()) >= k:
+            t |= 1 << bit
+    return t
+
+
+def _radix_select(slice_pats, k):
+    """(T, ties of T that survive, each slice's last-pass histogram)."""
+    prefix, mask, kk = 0, 0, k
+    for shift in (24, 16, 8, 0):
+        hists = [np.bincount((q[(q & mask) == prefix] >> shift) & 255,
+                             minlength=256) for q in slice_pats]
+        tot = np.sum(hists, axis=0)
+        suf = np.cumsum(tot[::-1])[::-1]           # count in bins >= d
+        d = max(i for i in range(256) if suf[i] >= kk)
+        prefix |= d << shift
+        mask |= 255 << shift
+        kk -= int(suf[d] - tot[d])
+    return prefix, kk, [int(h[prefix & 255]) for h in hists]
+
+
+def _or_fields(buf, offs, vals, width):
+    v = vals.astype(np.uint64) << (64 - (offs & 31) - width).astype(
+        np.uint64)
+    np.bitwise_or.at(buf, offs >> 5, v >> np.uint64(32))
+    np.bitwise_or.at(buf, (offs >> 5) + 1, v & np.uint64(0xFFFFFFFF))
+
+
+def _emulate_leaf(words, x, base, p_s, p_q, slices, threads=7):
+    n = x.size
+    k = topk_count(n, p_s)
+    select = k < n
+    pat = x.view(np.uint32) & np.uint32(0x7FFFFFFF)
+    part = -(-n // slices)
+    bounds = [(min(n, r * part), min(n, (r + 1) * part))
+              for r in range(slices)]
+    gmax = max(int(pat[a:b].max()) if b > a else 0 for a, b in bounds)
+    thr, need, last_bins = 0, 0, [0] * slices
+    if select:
+        thr, need, last_bins = _radix_select([pat[a:b] for a, b in bounds],
+                                             k)
+        assert thr == _binary_search_t(pat, k)
+        assert need == k - int((pat > thr).sum())
+    ties_before, _ = _excl(last_bins)
+    quantized = p_q < 32
+    vbits = min(p_q, 32)
+    scale = np.float32(max(np.uint32(gmax).view(np.float32),
+                           np.float32(1e-12))) if quantized \
+        else np.float32(1.0)
+    _or_fields(words, np.array([base]), np.array([scale]).view(np.uint32),
+               32)
+    # per slice, per run: survivors (global indices), counted serially
+    kept, totals = [], []
+    for r, (a, b) in enumerate(bounds):
+        m = b - a
+        run = -(-m // threads)
+        runs = [(a + min(m, t * run), a + min(m, t * run + run))
+                for t in range(threads)]
+        ties = [int((pat[u:v] == thr).sum()) if select else 0
+                for u, v in runs]
+        tie0, _ = _excl(ties)
+        per_run = []
+        for (u, v), t0 in zip(runs, tie0):
+            q = pat[u:v]
+            keep = np.ones(v - u, bool)
+            if select:
+                tie = q == thr
+                rank = ties_before[r] + t0 + np.cumsum(tie) - tie
+                keep = (q > thr) | (tie & (rank < need))
+            per_run.append(u + np.flatnonzero(keep))
+        counts = [len(s) for s in per_run]
+        lasts = [int(s[-1]) if len(s) else -1 for s in per_run]
+        kept.append((per_run, _excl(counts)[0], _excl(lasts, max, -1)[0]))
+        totals.append((sum(counts), max(lasts)))
+    bases, _ = _excl([t[0] for t in totals])
+    prevs, _ = _excl([t[1] for t in totals], max, -1)
+    L = 2 ** (p_q - 1) - 1
+    for r, (per_run, rank0, prev0) in enumerate(kept):
+        for field in range(2 if select else 1):
+            width = vbits if field == 0 else index_bits(n)
+            start = base + 32 + (0 if field == 0 else k * vbits)
+            first = start + bases[r] * width
+            count = totals[r][0]
+            if count == 0:
+                continue
+            w0, w1 = first >> 5, (first + count * width - 1) >> 5
+            window = np.zeros(w1 - w0 + 2, np.uint64)
+            for sel, r0, p0 in zip(per_run, rank0, prev0):
+                if not len(sel):
+                    continue
+                if field == 0:
+                    v = x[sel]
+                    f = (np.clip(np.rint((v / scale) * np.float32(L)), -L, L)
+                         .astype(np.int64) + L) if quantized \
+                        else v.view(np.uint32)
+                else:
+                    p0 = p0 if p0 >= 0 else (prevs[r] if prevs[r] >= 0
+                                             else 0)
+                    f = np.diff(sel, prepend=p0)
+                offs = start + (bases[r] + r0 + np.arange(len(sel))) * width
+                _or_fields(window, offs - w0 * 32, np.asarray(f), width)
+            assert window[-1] == 0
+            # interior words belong to this slice alone: stored
+            assert not words[w0 + 1:w1].any()
+            words[w0 + 1:w1] = window[1:w1 - w0]
+            words[w0] |= window[0]
+            if w1 > w0:
+                words[w1] |= window[w1 - w0]
+
+
+def _emulated_stream(leaves, p_s, p_q, slices):
+    offs, total = stream_layout([x.size for x in leaves], p_s, p_q)
+    words = np.zeros((total + 31) // 32 + 1, np.uint64)
+    for x, off in zip(leaves, offs):
+        _emulate_leaf(words, x, off, p_s, p_q,
+                      slices if x.size > 64 else 1)
+    return words_to_bytes(words[:-1].astype(np.uint32), total)
+
+
+def _leaf(kind):
+    rng = np.random.RandomState(21)
+    if kind == "ragged":
+        return rng.randn(10007).astype(np.float32)
+    if kind == "ties-straddle":
+        # few magnitudes: T is a tied value whose ties fill every slice
+        return rng.choice(np.float32([0.5, -0.5, 0.25, -0.25, 0.0]), 5003)
+    # "late-survivors": large values only at both ends, so middle slices
+    # keep nothing and the last slice's first delta reaches back slices
+    x = (rng.randn(9001) * 1e-3).astype(np.float32)
+    x[:200] = rng.randn(200) + 3.0
+    x[-200:] = rng.randn(200) - 3.0
+    return x
+
+
+@pytest.mark.parametrize("slices", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["ragged", "ties-straddle",
+                                  "late-survivors"])
+def test_fused_pack_cluster_decomposition_gives_the_stream(slices, kind):
+    """Radix select finds the binary search's T, and slices composed by
+    exclusive prefixes give fused_pack_plain's stream and the JAX host
+    pipeline's, byte for byte, between two small leaves."""
+    rng = np.random.RandomState(22)
+    leaves = [rng.randn(37).astype(np.float32), _leaf(kind),
+              rng.randn(5).astype(np.float32)]
+    for p_s, p_q in ((0.25, 8), (0.05, 4), (0.5, 32), (1.0, 16)):
+        want = pack_leaves_host(leaves, p_s, p_q)
+        _, total = stream_layout([x.size for x in leaves], p_s, p_q)
+        plain = words_to_stream(fused_pack_plain(
+            [torch.from_numpy(x) for x in leaves], p_s, p_q), total)
+        assert plain == want
+        assert _emulated_stream(leaves, p_s, p_q, slices) == want, (p_s, p_q)
+
+
+def test_fused_pack_launch_rows_cover_each_leaf_once():
+    """The kernel's CTA plan: big leaves first, CLUSTER slices each (the
+    last one shorter where n is ragged), small leaves one CTA each, idle
+    rows padding the last cluster; every element in exactly one slice."""
+    sizes = [32, 200703, 4096, tfp.BIG_LEAF, tfp.BIG_LEAF + 1, 10]
+    rows = tfp.launch_rows(sizes, 0.25, 8)
+    offs, _ = stream_layout(sizes, 0.25, 8)
+    assert len(rows) % tfp.CLUSTER == 0
+    assert [r[0] for r in rows[:2 * tfp.CLUSTER]] == \
+        [1] * tfp.CLUSTER + [4] * tfp.CLUSTER
+    for i, n in enumerate(sizes):
+        mine = [r for r in rows if r[0] == i]
+        assert all(r[1:5] == [n, topk_count(n, 0.25), offs[i],
+                              index_bits(n)] for r in mine)
+        assert len(mine) == (tfp.CLUSTER if n > tfp.BIG_LEAF else 1)
+        assert all(r[7] == len(mine) for r in mine)
+        cover = np.concatenate([np.arange(r[5], r[5] + r[6]) for r in mine])
+        np.testing.assert_array_equal(cover, np.arange(n))
+    idle = [r for r in rows if r[0] < 0]
+    assert len(idle) == -4 % tfp.CLUSTER and all(r[1] == -1 for r in idle)
 
 
 # ----------------------------------------------------------------------

@@ -352,20 +352,193 @@ def test_prefill_then_decode_continuation(mamba):
 
 
 # ----------------------------------------------------------------------
+# (d') the CUDA kernel's split-TF32 arithmetic, emulated in torch
+# ----------------------------------------------------------------------
+SSD_TOL_FULL = 1e-4      # chip_smoke.py: kernel C against its plain
+                         # version at full width (SSD_TOL = TOL elsewhere)
+
+
+def _tf32(x):
+    """Round f32 to TF32 as cvt.rna.tf32.f32 does: 10 mantissa bits, to
+    nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _trunc(x):
+    """f64 to f32, rounding toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mm(a, b, mode="split", tile=64):
+    """a @ b as the tensor cores form it, one m64nNk8 MMA per 8 columns of
+    K, each MMA adding its 8 exact products to its f32 accumulator and
+    rounding the sum toward zero (a model of the tensor cores' truncating
+    accumulation, not a bit-exact one).  Modes:
+    "split": the kernel's split TF32 -- hi*hi in one accumulator, lo*hi
+      and hi*lo in another, both fresh for each `tile` columns of K (None:
+      all of K) and added to the running sum in f32 with round to nearest;
+    "one": split TF32 with all three products in one accumulator over the
+      whole of K (the usual 3xTF32);
+    "1x": plain 1xTF32 in one accumulator."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    k_len = a.shape[-1]
+    out = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                      + (a.shape[-2], b.shape[-1]))
+
+    def mma(acc, x, y, s):
+        return _trunc(acc.double() + x[..., s].double()
+                      @ y[..., s, :].double())
+
+    steps = [slice(k, k + 8) for k in range(0, k_len, 8)]
+    if mode != "split":
+        acc = out
+        for s in steps:
+            if mode == "one":
+                acc = mma(mma(acc, al, bh, s), ah, bl, s)
+            acc = mma(acc, ah, bh, s)
+        return acc
+    per = len(steps) if tile is None else tile // 8
+    for t in range(0, len(steps), per):
+        hh = corr = torch.zeros_like(out)
+        for s in steps[t:t + per]:
+            hh = mma(hh, ah, bh, s)
+            corr = mma(mma(corr, al, bh, s), ah, bl, s)
+        out = out + (hh + corr)
+    return out
+
+
+def _ssd_split_tf32(xb, b, c, cum, heads, mode="split"):
+    """Kernel C's function with its products on the emulated tensor cores
+    (:func:`_mm`): C Bt once per (batch, chunk) over all of N, scores
+    masked in the exponent, y = scores Xb and S = Bt (d o Xb) with Xb
+    scaled by the decay to the chunk's end, both folded per 64 positions;
+    ragged L padded with zeros to a multiple of 8, as in shared memory."""
+    G, L, P = xb.shape
+    gb = G // heads
+    pad = (-L) % 8
+    x = torch.nn.functional.pad(xb.reshape(gb, heads, L, P),
+                                (0, 0, 0, pad))
+    bf, cf = b.float(), c.float()
+    cm = cum.reshape(gb, heads, L)
+    cb = _mm(cf, bf.transpose(1, 2), mode, tile=None)[:, None]
+    tril = torch.ones((L, L), dtype=torch.bool).tril()
+    diff = torch.where(tril, cm[..., :, None] - cm[..., None, :],
+                       torch.tensor(float("-inf")))
+    scores = torch.nn.functional.pad(cb * torch.exp(diff), (0, pad))
+    y = _mm(scores, x, mode)[..., :L, :]
+    d = torch.nn.functional.pad(torch.exp(cm[..., -1:] - cm), (0, pad))
+    bt = torch.nn.functional.pad(bf.transpose(1, 2), (0, pad))[:, None]
+    s = _mm(bt, x * d[..., None], mode)
+    return (y.reshape(G, L, P), s.reshape(G, -1, P),
+            torch.exp(cm[..., -1]).reshape(G, 1))
+
+
+def _smoke_cells(G, heads, L, P, N, seed, dtype):
+    """chip_smoke.py's ssd_cells inputs, on the CPU."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32))
+    xb = t(rng.randn(G, L, P))
+    b = t(rng.randn(G // heads, L, N) * 0.3).to(dtype)
+    c = t(rng.randn(G // heads, L, N) * 0.3).to(dtype)
+    cum = t(np.cumsum(-np.abs(rng.randn(G, 1, L)) * 0.05, axis=-1))
+    return xb, b, c, cum
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_tf32_holds_the_full_width_tolerance(dtype):
+    """The full-width cell (one 512-token prompt of Mamba2-370M: G = 64,
+    L=256, P=64, N=128) in split TF32 stays within SSD_TOL_FULL of the
+    plain f32 version; plain 1xTF32 would not."""
+    cfg = get_config("mamba2-370m")
+    H, L, P, N = cfg.ssm_heads, cfg.ssm_chunk, cfg.ssm_head_dim, \
+        cfg.ssm_state
+    xb, b, c, cum = _smoke_cells(2 * H, H, L, P, N, 7, dtype)
+    want = K.ssd_intra_chunk_plain(xb, b, c, cum, heads=H)
+    for g_, w_ in zip(_ssd_split_tf32(xb, b, c, cum, H), want):
+        torch.testing.assert_close(g_, w_, atol=SSD_TOL_FULL,
+                                   rtol=SSD_TOL_FULL)
+    y1 = _ssd_split_tf32(xb, b, c, cum, H, mode="1x")[0]
+    assert not torch.allclose(y1, want[0], atol=SSD_TOL_FULL,
+                              rtol=SSD_TOL_FULL)
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("N", [16, 32, 128])
+def test_split_tf32_holds_the_jax_tests_tolerance(chunk, N):
+    """At the JAX tests' sizes (B=2, H=2 over 256 positions, P=64) split
+    TF32 stays within their 1e-5 of the plain version and of the Pallas
+    kernel, f32 and bf16 b and c; also at ragged L."""
+    for dtype in (torch.float32, torch.bfloat16):
+        xb, b, c, cum = _smoke_cells(4 * (256 // chunk), 2, chunk, 64, N,
+                                     chunk + N, dtype)
+        got = _ssd_split_tf32(xb, b, c, cum, 2)
+        for g_, w_ in zip(got, K.ssd_intra_chunk_plain(xb, b, c, cum, 2)):
+            _close(g_, w_)
+    xb, b, c, cum = _smoke_cells(6, 3, 200 if N == 128 else 12, 64, N, 5,
+                                 torch.float32)
+    bb, cb = (np.repeat(a.numpy(), 3, axis=0) for a in (b, c))
+    want = jax_ssd_intra_chunk(*_j(xb.numpy(), bb, cb, cum.numpy()))
+    for g_, w_ in zip(_ssd_split_tf32(xb, b, c, cum, 3), want):
+        _close(g_, w_)
+
+
+# The card test's cells (test_ssd_kernel_matches_plain_on_card): G,
+# heads, L, P, N, with head counts the head group does not divide (3, 6),
+# ragged L and N = 8.  Its inputs are of unit scale, where the tensor
+# cores' truncation shows most.
+CARD_CELLS = ((8, 2, 64, 64, 32), (64, 32, 256, 64, 128), (6, 3, 12, 16, 8),
+              (12, 6, 200, 64, 8), (6, 3, 256, 32, 128), (6, 6, 100, 64, 16))
+
+
+def _card_cell(G, heads, L, P, N, dtype):
+    xb, b, c, cum = _t(*_cells(G, L, P, N, seed=L + N, gb=G // heads))
+    return xb, b.to(dtype), c.to(dtype), cum, (1e-4 if L == 256 else TOL)
+
+
+@pytest.mark.parametrize("cell", CARD_CELLS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_tf32_per_tile_fold_holds_the_card_tolerance(cell, dtype):
+    """On the emulated tensor cores the kernel's arithmetic (hi*hi and the
+    corrections apart, folded per 64 positions in f32) holds the card
+    test's tolerances at its unit-scale inputs."""
+    xb, b, c, cum, tol = _card_cell(*cell, dtype)
+    want = K.ssd_intra_chunk_plain(xb, b, c, cum, heads=cell[1])
+    for g_, w_ in zip(_ssd_split_tf32(xb, b, c, cum, cell[1]), want):
+        torch.testing.assert_close(g_, w_, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("cell", [(8, 2, 64, 64, 32), (6, 6, 100, 64, 16)],
+                         ids=str)
+def test_split_tf32_one_accumulator_misses_the_card_tolerance(cell):
+    """The usual 3xTF32, all three products in one accumulator over the
+    whole sum, misses the same tolerance on the emulated tensor cores:
+    what the per-tile fold is for."""
+    xb, b, c, cum, tol = _card_cell(*cell, torch.float32)
+    want = K.ssd_intra_chunk_plain(xb, b, c, cum, heads=cell[1])
+    got = _ssd_split_tf32(xb, b, c, cum, cell[1], mode="one")
+    assert not all(torch.allclose(g_, w_, atol=tol, rtol=tol)
+                   for g_, w_ in zip(got, want))
+
+
+# ----------------------------------------------------------------------
 # (e) the CUDA kernel against its plain version, on the card
 # ----------------------------------------------------------------------
 @pytest.mark.cuda
 def test_ssd_kernel_matches_plain_on_card(card):
     for dtype in (torch.float32, torch.bfloat16):
-        for G, heads, L, P, N in ((8, 2, 64, 64, 32), (64, 32, 256, 64, 128),
-                                  (6, 3, 12, 16, 8)):
-            xb, b, c, cum = (t.to(card) for t in _t(*_cells(
-                G, L, P, N, seed=L + N, gb=G // heads)))
-            b, c = b.to(dtype), c.to(dtype)
+        for cell in CARD_CELLS:
+            heads = cell[1]
+            *cpu, tol = _card_cell(*cell, dtype)
+            xb, b, c, cum = (t.to(card) for t in cpu)
             before = K.LAUNCHES
             got = K.ssd_intra_chunk(xb, b, c, cum, heads=heads)
             assert K.LAUNCHES == before + 1
             want = K.ssd_intra_chunk_plain(xb, b, c, cum, heads=heads)
-            tol = 1e-4 if L == 256 else TOL
             for g_, w_ in zip(got, want):
                 torch.testing.assert_close(g_, w_, atol=tol, rtol=tol)
