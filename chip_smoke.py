@@ -15,16 +15,22 @@ Phases, in order; the script exits nonzero if any of them fails:
    byte-identical streams, equal to the host pipeline, of the size the
    size model gives, decoding like the reference codec.
 3. Kernel B (``topk_quant``) against its plain version: identical levels
-   and scales at blocks of 4,096 and 16,384, f32 and bf16, 8 and 4 bits.
+   and scales at blocks of 1,024 and 4,096 (one CTA a row) and of
+   16,384, 32,768, 60,001, 65,536, 200,704 and 400,003 (a cluster a row;
+   at 400,003 the slices are read from device memory), f32 and bf16, 8, 4
+   and 2 bits, iters 16, 12 and 5, and the CNN's 8 leaves in one launch.
 4. The main path at full width: TEASQ-Fed on the paper's CNN with 100
    devices and 60,000/10,000 synthetic samples, through ``make_sim(...).run``
    for 5 aggregation rounds, then the packed wire encode and the block
-   channel of the trained global model, with every launch counter set to 0
-   before and read after.
+   channel (``compress_roundtrip_leaves``, one launch of kernel B) of the
+   trained global model, with every launch counter set to 0 before and
+   read after.
 5. The card against the CPU: one small run (8 devices, 640 samples) on
    ``cuda`` and on ``cpu`` from the same weights; the time, round and byte
    columns of the two histories must be equal.
-6. Kernel times of A and B against their plain versions and bounds.
+6. Kernel times of A and B against their plain versions and bounds (B
+   also from the profiler's device durations, the block channel's wall,
+   and fc1 as one row of 200,704).
 7. Kernel C (``ssd_scan``) against its plain version: the JAX tests' grid
    (chunk 32/64/128 x N 16/32/128, b and c in f32 and bf16), ragged
    chunk lengths, head counts of 3 and 6, N = 8, and the full-width cell
@@ -44,9 +50,15 @@ Phases, in order; the script exits nonzero if any of them fails:
 
 It needs one card, imports nothing of JAX, and runs from the root of a
 checkout.
+
+    python3 chip_smoke.py --profile-b [CHECKOUT]
+
+times only kernel B's block channel on the CNN's leaves, with the port of
+CHECKOUT (default: this one), so that two trees compare on one card.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -99,6 +111,51 @@ def time_cuda(fn, iters: int = 50, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def b_launch(leaves, block: int, iters: int, slices=None):
+    """A raw launch of kernel B over ``leaves`` at (0.25, 8) into outputs
+    of its own, ``slices`` CTAs a row (the wrapper's choice by default):
+    -> (launch, levels, scales)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import topk_quant as B
+    dev = leaves[0].device
+    firsts, rows, _ = B.launch_plan([x.numel() for x in leaves], block)
+    lv = torch.empty((rows, block), dtype=torch.int8, device=dev)
+    sc = torch.empty((rows, 1), dtype=torch.float32, device=dev)
+    k, i64 = len(leaves), ctypes.c_longlong
+    args = (k, (i64 * k)(*[x.data_ptr() for x in leaves]),
+            (i64 * k)(*[x.numel() for x in leaves]), (i64 * k)(*firsts),
+            rows, 0, block, slices or B.slices_for(block),
+            B.least_kept_count(block, 0.25), 8, iters, lv.data_ptr(),
+            sc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.library()
+    return (lambda: build.check(lib.topk_quant_launch(*args), "topk_quant"),
+            lv, sc)
+
+
+def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
+    """Milliseconds on the card per launch of the kernels whose name holds
+    ``name``, from torch.profiler over ``reps`` calls of ``fn`` (the
+    device's own kernel durations, whatever the host's pace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key:
+            total += e.self_device_time_total / 1e3
+            count += e.count
+    if count == 0:
+        raise RuntimeError(f"the profiler saw no kernel named {name!r}")
+    return total / count
 
 
 class Smoke:
@@ -162,7 +219,8 @@ class Smoke:
         np, torch = self.np, self.torch
         rng = np.random.RandomState(seed)
         shapes = {k: tuple(v.shape) for k, v in
-                  init_cnn(torch.Generator().manual_seed(0)).items()}
+                  init_cnn(torch.Generator().manual_seed(0),
+                           device="cpu").items()}
         return {k: torch.from_numpy(
             (rng.randn(*s) * 0.1).astype(np.float32)).to(self.dev)
             for k, s in shapes.items()}
@@ -252,33 +310,78 @@ class Smoke:
                                           checked_points=points)
 
     # -- phase 3 ------------------------------------------------------------
-    def kernel_b(self):
+    def b_input(self, kind, n, seed):
+        """Kernel B's inputs: normal values at scale 0.1, or few magnitudes
+        (ties at every threshold the bisection tries)."""
         np, torch = self.np, self.torch
-        from repro_torch.kernels.topk_quant import (_pad_rows, dequant,
-                                                    topk_quant,
-                                                    topk_quant_plain)
-        rng = np.random.RandomState(3)
-        flat = torch.from_numpy(
-            (rng.randn(206410) * 0.1).astype(np.float32)).to(self.dev)
-        cases, max_err = 0, 0.0
-        for block in (4096, 16384):
-            for dtype in (torch.float32, torch.bfloat16):
-                for bits in (8, 4):
-                    x = flat.to(dtype)
-                    lv, sc = topk_quant(x, p_s=0.25, bits=bits, block=block)
-                    lp, sp = topk_quant_plain(_pad_rows(x, block), 0.25, bits)
-                    where = f"(block={block}, {dtype}, bits={bits})"
-                    self.expect(torch.equal(lv, lp), f"levels {where}")
-                    self.expect(torch.equal(sc, sp), f"scales {where}")
-                    n = x.numel()
-                    err = (dequant(lv, sc, bits, n, (n,))
-                           - dequant(lp, sp, bits, n, (n,))).abs().max()
-                    max_err = max(max_err, float(err))
-                    cases += 1
-        print(f"   {cases} cases: levels and scales identical to the plain "
+        rng = np.random.RandomState(seed)
+        if kind == "ties":
+            x = rng.choice(np.float32([0.5, -0.5, 0.25, -0.25, 0.0]), n)
+        else:
+            x = (rng.randn(n) * 0.1).astype(np.float32)
+        return torch.from_numpy(x).to(self.dev)
+
+    def kernel_b(self):
+        torch = self.torch
+        from repro_torch.kernels import topk_quant as B
+        one = 1 if self.dev.type == "cuda" else 0    # launches per call
+        flat = self.b_input("gauss", 206410, 3)
+        # (input, block, dtype, bits, iters): the CNN's size at blocks of
+        # one CTA a row (1,024, 4,096) and of a 4-CTA cluster (16,384),
+        # then larger rows: fc1 as one row, a tie-heavy row of 60,001, a
+        # ragged tie-heavy input of 400,003 at block 65,536 and as one row
+        # (slices of 50,004 values, more than a CTA's shared memory holds:
+        # read from device memory)
+        cases = [(flat, b, d, bits, 16) for b in (4096, 16384)
+                 for d in (torch.float32, torch.bfloat16) for bits in (8, 4)]
+        fc1 = self.b_input("gauss", 200704, 4)
+        huge = self.b_input("ties", 400003, 5)
+        cases += [(flat, 1024, torch.float32, 8, 16),
+                  (flat, 16384, torch.float32, 2, 16),
+                  (flat, 16384, torch.float32, 8, 12),
+                  (flat, 16384, torch.bfloat16, 8, 5),
+                  (flat, 32768, torch.float32, 8, 16),
+                  (self.b_input("ties", 60001, 6), 60001, torch.float32, 8,
+                   16),
+                  (fc1, 200704, torch.float32, 8, 12),
+                  (fc1, 200704, torch.bfloat16, 4, 16),
+                  (huge, 65536, torch.float32, 8, 16),
+                  (huge, 400003, torch.float32, 8, 16)]
+        checked, max_err = 0, 0.0
+        for x, block, dtype, bits, iters in cases:
+            x = x.to(dtype)
+            where = (f"(n={x.numel()}, block={block}, {dtype}, bits={bits}, "
+                     f"iters={iters})")
+            before = B.LAUNCHES
+            lv, sc = B.topk_quant(x, p_s=0.25, bits=bits, iters=iters,
+                                  block=block)
+            self.expect(B.LAUNCHES == before + one, f"launches {where}")
+            lp, sp = B.topk_quant_plain(B._pad_rows(x, block), 0.25, bits,
+                                        iters)
+            self.expect(torch.equal(lv, lp), f"levels {where}")
+            self.expect(torch.equal(sc, sp), f"scales {where}")
+            n = x.numel()
+            err = (B.dequant(lv, sc, bits, n, (n,))
+                   - B.dequant(lp, sp, bits, n, (n,))).abs().max()
+            max_err = max(max_err, float(err))
+            checked += 1
+        # the CNN's 8 leaves in one call: one launch at the default block
+        leaves = [v for _, v in sorted(self.cnn_like(7).items())]
+        before = B.LAUNCHES
+        got = B.topk_quant_leaves(leaves)
+        self.expect(B.LAUNCHES == before + one,
+                    f"the 8 leaves took {B.LAUNCHES - before} launches")
+        for i, (x, (lv, sc)) in enumerate(zip(leaves, got)):
+            lp, sp = B.topk_quant_plain(B._pad_rows(x, B.DEFAULT_BLOCK))
+            self.expect(torch.equal(lv, lp) and torch.equal(sc, sp),
+                        f"topk_quant_leaves, leaf {i}")
+        checked += 1
+        print(f"   {checked} cases ({len(cases)} tensors at blocks 1,024 to "
+              f"400,003, bits 8/4/2, iters 16/12/5; the CNN's 8 leaves in "
+              f"one launch): levels and scales identical to the plain "
               f"version (tolerance: exact)")
         self.kernels["topk_quant"].update(max_abs_err=max_err,
-                                          checked_cases=cases)
+                                          checked_cases=checked)
 
     # -- phase 4 ------------------------------------------------------------
     def main_path(self):
@@ -307,7 +410,9 @@ class Smoke:
         wall = time.perf_counter() - t0
         w = sim.server.w
         wire = PackedBitstreamCodec(0.25, 8).encode(w)
-        channel = {k: ops.compress_roundtrip(v) for k, v in w.items()}
+        names = sorted(w)
+        channel = dict(zip(names, ops.compress_roundtrip_leaves(
+            [w[k] for k in names])))
         self.sync()
         launches = self.read_counts()
         del launches["ssd_scan"]          # not on this path
@@ -329,6 +434,9 @@ class Smoke:
                     "trained weights not finite")
         self.expect(all(n > 0 for n in launches.values()),
                     f"a kernel did not run on the main path: {launches}")
+        self.expect(launches["topk_quant"] == 1,
+                    f"the block channel took {launches['topk_quant']} "
+                    f"launches of kernel B, not 1")
         # what the kernels produced on the trained model, checked on the host
         host = PackedBitstreamCodec(0.25, 8, fused=False).encode(w)
         self.expect(wire.payload == host.payload,
@@ -342,12 +450,13 @@ class Smoke:
                 topk_quant._pad_rows(v, topk_quant.DEFAULT_BLOCK))
             plain = topk_quant.dequant(lp, sp, 8, v.numel(), v.shape)
             self.expect(torch.equal(channel[k], plain),
-                        f"compress_roundtrip of {k} != plain version")
+                        f"compress_roundtrip_leaves of {k} != plain version")
             self.expect(bool(torch.isfinite(channel[k]).all()),
-                        f"compress_roundtrip of {k} not finite")
+                        f"compress_roundtrip_leaves of {k} not finite")
         print("   trained model: kernel A's stream equals the host pipeline "
-              "and decodes like DenseRefCodec; kernel B's channel equals its "
-              "plain version on every leaf (tolerance: exact)")
+              "and decodes like DenseRefCodec; kernel B's channel (one "
+              "launch for the 8 leaves) equals its plain version on every "
+              "leaf (tolerance: exact)")
         for name, n in launches.items():
             self.kernels[name]["launches"] = n
         self.trained = w
@@ -389,8 +498,9 @@ class Smoke:
         from repro_torch.kernels.fused_pack import (fused_pack_plain,
                                                     launch_meta,
                                                     stream_layout)
-        from repro_torch.kernels.topk_quant import (DEFAULT_BLOCK, _pad_rows,
-                                                    topk_quant_plain)
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import topk_quant as B
+        from repro_torch.kernels.topk_quant import topk_quant_plain
         lib = build.library()
         w = self.trained
         xs = [w[k].contiguous() for k in sorted(w)]
@@ -415,25 +525,41 @@ class Smoke:
         # a max and 4 radix passes over n, 3 emission passes (ties, ranks,
         # fields), 4 operations per survivor
         ops_a = 8 * n + 4 * sum(topk_count(m, 0.25) for m in sizes)
-        # kernel B as the main path calls it: one launch per leaf
-        rows = [_pad_rows(x, DEFAULT_BLOCK) for x in xs]
-        outs = [(torch.empty(r.shape, dtype=torch.int8, device=self.dev),
-                 torch.empty((r.shape[0], 1), dtype=torch.float32,
-                             device=self.dev)) for r in rows]
-
-        def run_b():
-            for r, (lv, sc) in zip(rows, outs):
-                build.check(lib.topk_quant_launch(
-                    r.data_ptr(), 0, r.shape[0], r.shape[1], 0.25, 8, 16,
-                    lv.data_ptr(), sc.data_ptr(), stream), "topk_quant")
-
+        # kernel B as the main path calls it: one launch for the 8
+        # unpadded leaves (host walls first: the profiler leaves launches
+        # slower after it)
+        ops.compress_roundtrip_leaves(xs)
+        wall_b, _ = self.timed(lambda: ops.compress_roundtrip_leaves(xs), 50)
+        run_b = b_launch(xs, B.DEFAULT_BLOCK, 16)[0]
         ms_b = time_cuda(run_b)
+        dev_b = kernel_device_ms(run_b, "topk_quant")
+        rows = [B._pad_rows(x, B.DEFAULT_BLOCK) for x in xs]
         plain_b = time_cuda(lambda: [topk_quant_plain(r, 0.25, 8)
                                      for r in rows], iters=10)
         n_pad = sum(r.numel() for r in rows)
         m_rows = sum(r.shape[0] for r in rows)
-        bytes_b = 4 * n_pad + n_pad + 4 * m_rows
+        # each input value read once, each level and scale written once
+        bytes_b = 4 * n + n_pad + 4 * m_rows
         ops_b = (16 + 5) * n_pad
+        # the whole-tensor form of the next slice's threshold channel: fc1
+        # as one row of 200,704 over a cluster, 12 steps (record only)
+        fc1 = w["fc1"].contiguous().reshape(-1)
+        run_fc1 = b_launch([fc1], fc1.numel(), 12)[0]
+        ms_fc1 = time_cuda(run_fc1)
+        dev_fc1 = kernel_device_ms(run_fc1, "topk_quant")
+        print(f"   topk_quant, one launch for the 8 leaves: {ms_b * 1e3:.2f} "
+              f"us per launch (events over 50), {dev_b * 1e3:.2f} us on the "
+              f"card (profiler); the block channel through "
+              f"compress_roundtrip_leaves, dequant included: "
+              f"{wall_b * 1e3:.1f} us of wall (host clock, synchronized) "
+              f"[{self.card()}]")
+        print(f"   topk_quant on fc1 as one row (block 200,704, iters 12, "
+              f"8-CTA cluster): {ms_fc1 * 1e3:.2f} us (events), "
+              f"{dev_fc1 * 1e3:.2f} us on the card (profiler)")
+        self.kernels["topk_quant"].update(device_ms=dev_b,
+                                          channel_wall_ms=wall_b,
+                                          fc1_row_ms=ms_fc1,
+                                          fc1_row_device_ms=dev_fc1)
         for name, ms, plain, nbytes, nops, src, repl in (
                 ("fused_pack", ms_a, plain_a, bytes_a, ops_a,
                  "src/repro_torch/kernels/csrc/fused_pack.cu",
@@ -453,10 +579,9 @@ class Smoke:
                   f"plain, bound {max(t_bytes, t_ops) * 1e3:.3f} us "
                   f"({nbytes} bytes, {nops} ops)")
         print("   fused_pack times one launch for the whole CNN dict at "
-              "(0.25, 8); topk_quant "
-              "the 8 per-leaf launches of compress_roundtrip at block "
-              f"{DEFAULT_BLOCK}. No single PyTorch call computes either "
-              "function: library_ms is null.")
+              "(0.25, 8); topk_quant one launch for its 8 leaves at block "
+              f"{B.DEFAULT_BLOCK}, (0.25, 8, 16). No single PyTorch call "
+              "computes either function: library_ms is null.")
 
     # -- phase 7 ------------------------------------------------------------
     def ssd_inputs(self, B, S, H, P, N, seed):
@@ -800,6 +925,58 @@ def _leaves(tree):
             yield v
 
 
+def profile_b(root: str) -> int:
+    """Kernel B's block channel on the CNN's 8 leaves (seeded), with the
+    port of the checkout at ``root`` (this one, or an earlier one unpacked
+    beside it, to compare two trees on one card): CUDA events over 50
+    calls of the wrapper in the form the main path uses (one
+    ``topk_quant_leaves`` where the tree has it, else one ``topk_quant``
+    per leaf), the profiler's device duration per launch of kernel B, the
+    synchronized host wall of the whole channel, dequant included, and,
+    for a tree that spreads rows over clusters, the device duration at 1,
+    2, 4 and 8 CTAs a row."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_quant as B
+    s = Smoke()
+    xs = [v for _, v in sorted(s.cnn_like(8).items())]
+    if hasattr(B, "topk_quant_leaves"):
+        call = lambda: B.topk_quant_leaves(xs)            # noqa: E731
+        channel = lambda: ops.compress_roundtrip_leaves(xs)  # noqa: E731
+    else:
+        call = lambda: [B.topk_quant(x) for x in xs]      # noqa: E731
+        channel = lambda: [ops.compress_roundtrip(x)      # noqa: E731
+                           for x in xs]
+    B.LAUNCHES = 0
+    call()
+    s.sync()
+    per_call = B.LAUNCHES
+    channel()
+    wall, _ = s.timed(channel, 50)    # before the profiler, as in phase 6
+    events = time_cuda(call)
+    device = kernel_device_ms(call, "topk_quant")
+    sweep = {}
+    if hasattr(B, "slices_for"):
+        # the CTAs per row at the default block (the wrapper takes 4): the
+        # device duration of one launch each, its output checked
+        levels, scales, _ = B.topk_quant_rows(xs, 0.25, 8, 16,
+                                              B.DEFAULT_BLOCK)
+        for slices in (1, 2, 4, 8):
+            run, lv, sc = b_launch(xs, B.DEFAULT_BLOCK, 16, slices)
+            run()
+            s.expect(torch.equal(lv, levels) and torch.equal(sc, scales),
+                     f"{slices} CTAs a row differ from the wrapper")
+            sweep[slices] = kernel_device_ms(run, "topk_quant")
+    print(json.dumps({"tree": root, "module": B.__file__,
+                      "launches_per_call": per_call, "events_ms": events,
+                      "device_ms_per_launch": device,
+                      "device_ms_per_call": device * per_call,
+                      "channel_wall_ms": wall,
+                      "device_ms_by_ctas_per_row": sweep,
+                      "card": nvidia_smi()}))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -807,12 +984,17 @@ def main() -> int:
         die("PyTorch is not installed")
     if not torch.cuda.is_available():
         die("no CUDA device is available: this script runs on the card")
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    root = ROOT
+    if sys.argv[1:2] == ["--profile-b"] and len(sys.argv) > 2:
+        root = os.path.abspath(sys.argv[2])
+    sys.path.insert(0, os.path.join(root, "src"))
     try:
         import repro_torch  # noqa: F401
     except ImportError:
-        die("src/repro_torch not found: run from the root of a checkout")
-
+        die(f"{root}/src/repro_torch not found: run from the root of a "
+            f"checkout")
+    if sys.argv[1:2] == ["--profile-b"]:
+        return profile_b(root)
     s = Smoke()
     t0 = time.perf_counter()
     s.phase("1. device and build", s.device_and_build)

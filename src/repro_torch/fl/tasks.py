@@ -69,7 +69,7 @@ def get_task(name: str) -> FLTask:
 
 register_task(FLTask(
     name="fmnist_cnn",
-    init_params=lambda generator, device="cpu": init_cnn(generator,
+    init_params=lambda generator, device=None: init_cnn(generator,
                                                          device=device),
     loss=cnn_loss,
     eval_metric=cnn_accuracy,

@@ -125,11 +125,12 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's C signature
     declared (pointers and the stream as ``c_void_p``)."""
     lib = ctypes.CDLL(str(build_library()))
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_pack_launch.argtypes = [vp, i32, vp, i32, vp]
     lib.fused_pack_launch.restype = i32
-    lib.topk_quant_launch.argtypes = [vp, i32, i32, i32, f32, i32, i32, vp,
-                                      vp, vp]
+    i64p = ctypes.POINTER(ctypes.c_longlong)
+    lib.topk_quant_launch.argtypes = [i32, i64p, i64p, i64p, i32, i32, i32,
+                                      i32, i32, i32, i32, vp, vp, vp]
     lib.topk_quant_launch.restype = i32
     lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                     i32, vp, vp, vp, vp]

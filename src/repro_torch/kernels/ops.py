@@ -7,13 +7,13 @@ or launch raises.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, List, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels.fused_pack import pack_leaves
 from repro_torch.kernels.ssd_scan import ssd_chunked_kernel
-from repro_torch.kernels.topk_quant import DEFAULT_BLOCK, dequant, topk_quant
+from repro_torch.kernels.topk_quant import DEFAULT_BLOCK, topk_quant_rows
 from repro_torch.utils.tree import leaves as tree_leaves
 
 
@@ -28,9 +28,22 @@ def fused_wire_encode(tree: Any, p_s: float, p_q: int) -> bytes:
 def compress_roundtrip(x: torch.Tensor, p_s: float = 0.25, bits: int = 8,
                        block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """Kernel-backed lossy compress -> decompress of a tensor."""
-    levels, scales = topk_quant(x.reshape(-1), p_s=p_s, bits=bits,
-                                block=block)
-    return dequant(levels, scales, bits, x.numel(), x.shape).to(x.dtype)
+    return compress_roundtrip_leaves([x], p_s, bits, block)[0]
+
+
+def compress_roundtrip_leaves(leaves: Sequence[torch.Tensor],
+                              p_s: float = 0.25, bits: int = 8,
+                              block: int = DEFAULT_BLOCK
+                              ) -> List[torch.Tensor]:
+    """``[compress_roundtrip(x, ...) for x in leaves]`` (the JAX
+    ``compress_roundtrip`` mapped over a dict's leaves): on CUDA tensors one
+    kernel launch for the list, and the rows of all leaves dequantized in
+    one elementwise chain; each result has its leaf's shape and dtype."""
+    levels, scales, firsts = topk_quant_rows(leaves, p_s, bits, 16, block)
+    L = 2 ** (bits - 1) - 1
+    vals = (levels.to(torch.float32) * scales / L).view(-1)
+    return [vals.narrow(0, r * block, x.numel()).view(x.shape).to(x.dtype)
+            for r, x in zip(firsts, leaves)]
 
 
 def ssd(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,

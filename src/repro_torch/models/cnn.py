@@ -24,15 +24,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.utils.tree import resolve_device
+
 Params = Dict[str, torch.Tensor]
 
 
 def init_cnn(generator: torch.Generator, n_classes: int = 10,
              channels: int = 32, fc_width: int = 128,
-             device="cpu") -> Params:
+             device=None) -> Params:
     """Uniform fan-in init with the JAX package's bounds and shapes, drawn
     from ``generator`` (a ``torch.Generator`` on the CPU; the result moves
-    to ``device``).  The draws differ from ``jax.random``'s; a test that
+    to ``device``, the card unless the caller names one:
+    ``utils.tree.resolve_device``).  The draws differ from ``jax.random``'s; a test that
     needs JAX's own weights carries them over with
     ``repro_torch.utils.tree.from_numpy``."""
 
@@ -52,6 +55,7 @@ def init_cnn(generator: torch.Generator, n_classes: int = 10,
         "fc2": uniform((fc_width, n_classes), 1.0 / math.sqrt(fc_width)),
         "bf2": torch.zeros(n_classes),
     }
+    device = resolve_device(device)
     return {k: v.to(device) for k, v in params.items()}
 
 

@@ -93,7 +93,7 @@ def test_gradients(weights):
 
 
 def test_init_cnn_shapes_and_bounds():
-    w = tcnn.init_cnn(torch.Generator().manual_seed(0))
+    w = tcnn.init_cnn(torch.Generator().manual_seed(0), device="cpu")
     jw = jcnn.init_cnn(jax.random.PRNGKey(0))
     assert {k: tuple(v.shape) for k, v in w.items()} == \
         {k: tuple(v.shape) for k, v in jw.items()}
@@ -101,8 +101,23 @@ def test_init_cnn_shapes_and_bounds():
     for k in ("conv1", "conv2", "fc1", "fc2"):
         bound = float(np.abs(np.asarray(jw[k])).max())
         assert float(w[k].abs().max()) <= bound * 1.01 + 1e-3
-    again = tcnn.init_cnn(torch.Generator().manual_seed(0))
+    again = tcnn.init_cnn(torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(w[k], again[k]) for k in w)
+
+
+@pytest.mark.parametrize("make", ["init_cnn", "task"])
+def test_cnn_init_follows_the_device_rule(make, monkeypatch):
+    """With no device named the weights go to the card, and with no card
+    the constructor raises (it never falls back to the CPU); a named
+    device is used as given."""
+    from repro_torch.fl.tasks import get_task
+    init = (tcnn.init_cnn if make == "init_cnn"
+            else get_task("fmnist_cnn").init_params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init(torch.Generator().manual_seed(0))
+    w = init(torch.Generator().manual_seed(0), device="cpu")
+    assert all(v.device.type == "cpu" for v in w.values())
 
 
 def test_local_update_one_epoch(weights):

@@ -25,7 +25,9 @@ from repro_torch.kernels.fused_pack import (concat_bitstreams,
                                             fused_pack_leaf, fused_pack_plain,
                                             pack_leaves, stream_layout,
                                             words_to_stream)
-from repro_torch.kernels.ops import compress_roundtrip, fused_wire_encode
+from repro_torch.kernels.ops import (compress_roundtrip,
+                                     compress_roundtrip_leaves,
+                                     fused_wire_encode)
 from repro_torch.kernels.topk_quant import (_pad_rows, dequant, topk_quant,
                                             topk_quant_plain)
 
@@ -379,19 +381,351 @@ def test_topk_quant_wrapper_runs_the_plain_version_on_cpu():
     assert torch.equal(lv, lp) and torch.equal(sc, sp)
     y = dequant(lv, sc, 8, 5000, (50, 100))
     assert y.shape == (50, 100)
+    # no block limit: a block of 32,768 (above one CTA's row) equals the
+    # JAX kernel in interpret mode
+    lv, sc = topk_quant(x, block=32768)
+    jl, js = jax_topk_quant(jnp.asarray(x.numpy()), block=32768)
+    assert lv.shape == (1, 32768)
+    np.testing.assert_array_equal(lv.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(js))
+
+
+def _mid(lo, hi):
+    return np.float32(np.float32(0.5) * np.float32(lo + hi))
+
+
+@pytest.mark.parametrize("block", [1, 7, 1000, 4096, 16384, 60001,
+                                   200704, 2 ** 24 + 3])
+@pytest.mark.parametrize("p_s", [0.0, 0.05, 0.1, 0.25, 1 / 3, 0.5, 1.0])
+def test_topk_quant_least_kept_count_is_the_division_rule(block, p_s):
+    """The kernel decides count >= need, with need searched once by the
+    wrapper: the same decision as count / block > p_s in f32 for every
+    count (checked around need, where the two could differ, and at the
+    ends)."""
+    need = ttq.least_kept_count(block, p_s)
+    fb, ps = np.float32(block), np.float32(p_s)
+    counts = {0, block, need - 2, need - 1, need, need + 1}
+    for c in sorted(c for c in counts if 0 <= c <= block):
+        assert (c >= need) == bool(np.float32(c) / fb > ps), (c, need)
+
+
+def _kary_row(row, block, p_s, bits, iters, s, slices, visited=None):
+    """csrc/topk_quant.cu's algorithm on one row (its ``row.size <= block``
+    values; the rest of the block is pad, never read) in numpy f32: the
+    max over ``slices`` contiguous slices, then passes of ``s`` bisection
+    steps -- the tree of midpoints by the sequential f32 recursion, each
+    |x| binned from its position in [lo, hi) and corrected against its
+    neighbouring midpoints, bin 0 dropped and |x| >= hi counted apart,
+    per-slice histograms summed, suffix counts, the walk of decisions --
+    and the scale from max|x| without a kept-max pass.  Returns the
+    levels (block,) int8 and the scale; appends the midpoint of each
+    decision to ``visited``."""
+    # the kernel's slice_len: over a cluster a multiple of 4 values
+    part = block if slices == 1 else (-(-block // slices) + 3) // 4 * 4
+    ax = np.abs(row.astype(np.float32))
+    cuts = [ax[r * part:(r + 1) * part] for r in range(slices)]
+    amax = max((float(c.max()) if c.size else 0.0) for c in cuts)
+    amax = np.float32(amax)
+    lo, hi = np.float32(0), np.float32(amax + np.float32(1e-12))
+    done = 0
+    while done < iters:
+        depth = min(s, iters - done)
+        nb = 1 << depth
+        mids = np.zeros(nb + 1, np.float32)
+        mids[0], mids[nb] = lo, hi
+        step = nb
+        while step > 1:
+            half = step >> 1
+            for j in range(half, nb, step):
+                mids[j] = _mid(mids[j - half], mids[j + half])
+            step = half
+        assert np.all(np.diff(mids) >= 0)           # in order, sorted
+        inv = np.float32(nb) / np.float32(hi - lo) if hi > lo else \
+            np.float32(0)
+        hist = np.zeros(nb, np.int64)
+        for c in cuts:                              # one CTA's slice each
+            a = c[c >= lo]
+            top = int((a >= hi).sum())
+            a = a[a < hi]
+            with np.errstate(over="ignore", invalid="ignore"):
+                est = np.floor(np.float32(a - lo) * inv)
+            b = np.clip(np.nan_to_num(est, nan=0.0), 0, nb - 1).astype(
+                np.int64)
+            while True:                             # corrections
+                up = (b < nb - 1) & (mids[np.minimum(b + 1, nb)] <= a)
+                if not up.any():
+                    break
+                b += up
+            while True:
+                down = (b > 0) & (mids[b] > a)
+                if not down.any():
+                    break
+                b -= down
+            np.testing.assert_array_equal(
+                b, np.searchsorted(mids[1:nb], a, side="right"))
+            h = np.bincount(b[b > 0], minlength=nb)
+            h[nb - 1] += top
+            hist += h
+        suffix = np.cumsum(hist[::-1])[::-1]        # values >= mids[j]
+        # the kernel: K = the number of midpoints whose count >= need,
+        # and (lo, hi) = (mids[K], mids[K + 1])
+        need = ttq.least_kept_count(block, p_s)
+        k = int((suffix[1:nb] >= need).sum())
+        want = (mids[k], mids[k + 1])
+        j, step = nb >> 1, nb >> 2
+        for _ in range(depth):
+            if visited is not None:
+                visited.append(mids[j])
+            frac = np.float32(suffix[j]) / np.float32(block)
+            if frac > np.float32(p_s):
+                lo, j = mids[j], j + step
+            else:
+                hi, j = mids[j], j - step
+            step >>= 1
+        assert (lo, hi) == want                     # the walk down the tree
+        done += depth
+    thr = _mid(lo, hi)
+    scale = np.float32(max(amax if amax >= thr else np.float32(0),
+                           np.float32(1e-12)))
+    L = np.float32(2 ** (bits - 1) - 1)
+    x = row.astype(np.float32)
+    kept = np.where(np.abs(x) >= thr, x, np.float32(0))
+    q = np.clip(np.round(np.float32(kept / scale) * L), -L, L)
+    levels = np.zeros(block, np.int8)
+    levels[:row.size] = q.astype(np.int8)
+    return levels, scale
+
+
+def _kary(x, block, p_s=0.25, bits=8, iters=16, s=8, slices=1):
+    """:func:`_kary_row` over every row of flat ``x`` -> (levels (M,
+    block), scales (M, 1))."""
+    flat = x.reshape(-1)
+    m = max(1, -(-flat.size // block))
+    out = [_kary_row(flat[i * block:(i + 1) * block], block, p_s, bits,
+                     iters, s, slices) for i in range(m)]
+    return (np.stack([o[0] for o in out]),
+            np.array([[o[1]] for o in out], np.float32))
+
+
+def _rows_of(kind, n, seed):
+    rng = np.random.RandomState(seed)
+    if kind == "gauss":
+        scale = 10.0 ** rng.uniform(-6, 2)
+        return (rng.randn(n) * scale).astype(np.float32)
+    if kind == "ties":
+        return rng.choice(np.float32([0.5, -0.5, 0.25, -0.25, 0.0]), n)
+    x = rng.randn(n).astype(np.float32)              # "half-zero"
+    x[rng.rand(n) < 0.5] = 0.0
+    return x
+
+
+def _sequential_mids(row, block, p_s, iters):
+    """The midpoints the sequential loop tries on one row, in numpy f32."""
+    ax = np.abs(row.astype(np.float32))
+    lo, hi = np.float32(0), np.float32(ax.max() + np.float32(1e-12))
+    out = []
+    for _ in range(iters):
+        mid = _mid(lo, hi)
+        out.append(mid)
+        if np.float32((ax >= mid).sum()) / np.float32(block) > \
+                np.float32(p_s):
+            lo = mid
+        else:
+            hi = mid
+    return out
+
+
+@pytest.mark.parametrize("s", [4, 8])
+@pytest.mark.parametrize("iters", [16, 12, 5])
+@pytest.mark.parametrize("kind", ["gauss", "ties", "half-zero"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_topk_quant_kary_bisection_is_the_sequential_one(s, iters, kind,
+                                                         dtype):
+    """The kernel's k-ary bisection (s steps a pass) gives the sequential
+    loop's threshold, so levels and scales equal topk_quant_plain's and
+    the JAX kernel's bit for bit; 5,000 values at block 4,096, the second
+    row ragged."""
+    x = _rows_of(kind, 5000, 100 * s + iters + len(kind))
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    if dtype == "bfloat16":
+        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+        x = tx.to(torch.float32).numpy()
+    lv, sc = _kary(x, 4096, iters=iters, s=s)
+    for r in range(2):               # the tree walks the loop's midpoints
+        row, visited = x[r * 4096:(r + 1) * 4096], []
+        _kary_row(row, 4096, 0.25, 8, iters, s, 1, visited)
+        np.testing.assert_array_equal(
+            np.float32(visited), np.float32(_sequential_mids(
+                row, 4096, 0.25, iters)))
+    lp, sp = topk_quant_plain(_pad_rows(tx, 4096), 0.25, 8, iters)
+    np.testing.assert_array_equal(lv, lp.numpy())
+    np.testing.assert_array_equal(sc, sp.numpy())
+    jl, js = jax_topk_quant(jx, p_s=0.25, bits=8, iters=iters, block=4096)
+    np.testing.assert_array_equal(lv, np.asarray(jl))
+    np.testing.assert_array_equal(sc, np.asarray(js))
+
+
+@pytest.mark.parametrize("slices", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["gauss", "ties", "half-zero"])
+def test_topk_quant_cluster_slices_give_the_row(slices, kind):
+    """A row over a cluster: per-slice maxima and histograms summed over
+    1, 3 and 8 slices give the whole row's levels and scale, those of
+    topk_quant_plain and of the JAX kernel -- one row of 60,001 values
+    (block 60,001) and a ragged one of 50,000 at block 60,001, whose last
+    slices hold only pad."""
+    for n, seed in ((60001, 7), (50000, 8)):
+        x = _rows_of(kind, n, seed + slices)
+        want_l, want_s = _kary(x, 60001, slices=1)
+        lv, sc = _kary(x, 60001, slices=slices)
+        np.testing.assert_array_equal(lv, want_l)
+        np.testing.assert_array_equal(sc, want_s)
+        lp, sp = topk_quant(torch.from_numpy(x), block=60001)
+        np.testing.assert_array_equal(lv, lp.numpy())
+        np.testing.assert_array_equal(sc, sp.numpy())
+        jl, js = jax_topk_quant(jnp.asarray(x), block=60001)
+        np.testing.assert_array_equal(lv, np.asarray(jl))
+        np.testing.assert_array_equal(sc, np.asarray(js))
+
+
+@pytest.mark.parametrize("block", [32768, 60001])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_topk_quant_large_blocks_match_pallas_interpret(block, dtype):
+    """Blocks above one CTA's row (the kernel's cluster form): levels and
+    scales bit for bit with the JAX kernel on a ragged 70,001-value input
+    (60,001 is no power of two: count / block is one f32 division in
+    both)."""
+    x = (np.random.RandomState(block).randn(70001) * 0.1).astype(np.float32)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    if dtype == "bfloat16":
+        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+    for iters in (16, 12):
+        jl, js = jax_topk_quant(jx, iters=iters, block=block)
+        lv, sc = topk_quant(tx, iters=iters, block=block)
+        assert lv.shape == (-(-70001 // block), block)
+        np.testing.assert_array_equal(lv.numpy(), np.asarray(jl))
+        np.testing.assert_array_equal(sc.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_topk_quant_leaves_is_the_per_leaf_call(bits):
+    """topk_quant_leaves on the CNN's 8 leaves equals topk_quant leaf by
+    leaf and the JAX kernel on each leaf."""
+    tree = _cnn_tree(12)
+    names = sorted(tree)
+    got = ttq.topk_quant_leaves([torch.from_numpy(tree[k]) for k in names],
+                                bits=bits)
+    assert len(got) == len(names)
+    for k, (lv, sc) in zip(names, got):
+        want = topk_quant(torch.from_numpy(tree[k]), bits=bits)
+        assert torch.equal(lv, want[0]) and torch.equal(sc, want[1]), k
+        jl, js = jax_topk_quant(jnp.asarray(tree[k]), bits=bits)
+        np.testing.assert_array_equal(lv.numpy(), np.asarray(jl))
+        np.testing.assert_array_equal(sc.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("block", [1024, 16384])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compress_roundtrip_leaves_is_the_per_leaf_call(block, dtype):
+    """compress_roundtrip_leaves on the CNN's leaves: each result equals
+    compress_roundtrip of its leaf and the JAX compress_roundtrip, with
+    the leaf's shape and dtype."""
+    tree = _cnn_tree(13)
+    names = sorted(tree)
+    tdt = getattr(torch, dtype)
+    xs = [torch.from_numpy(tree[k]).to(tdt) for k in names]
+    got = compress_roundtrip_leaves(xs, 0.25, 8, block=block)
+    for k, x, y in zip(names, xs, got):
+        assert y.shape == x.shape and y.dtype == tdt
+        assert torch.equal(y, compress_roundtrip(x, 0.25, 8, block=block)), k
+        want = jax_compress_roundtrip(
+            jnp.asarray(x.to(torch.float32).numpy()).astype(getattr(
+                jnp, dtype)), 0.25, 8, block=block, interpret=True)
+        np.testing.assert_array_equal(
+            y.to(torch.float32).numpy(),
+            np.asarray(want.astype(jnp.float32)))
+
+
+def test_topk_quant_launch_plan_covers_each_leaf_once():
+    """The kernel's launches: each leaf's rows consecutive from its first
+    row (a row for an empty leaf too), MAX_LEAVES leaves a launch, the
+    launches' rows adding up to the total."""
+    sizes = [32, 0, 16384, 16385, 200704] + [10] * (2 * ttq.MAX_LEAVES)
+    firsts, total, launches = ttq.launch_plan(sizes, 16384)
+    rows = [max(1, -(-n // 16384)) for n in sizes]
+    assert firsts == list(np.cumsum([0] + rows[:-1]))
+    assert total == sum(rows)
+    assert [(a, b) for a, b, _ in launches] == [
+        (0, 64), (64, 128), (128, len(sizes))]
+    assert sum(r for _, _, r in launches) == total
+    for a, b, r in launches:
+        assert r == sum(rows[a:b])
+
+
+@pytest.mark.parametrize("block,slices", [
+    (1, 1), (1024, 1), (4096, 1), (4097, 2), (16384, 4), (32768, 8),
+    (60001, 8), (200704, 8), (400003, 8)])
+def test_topk_quant_row_takes_one_cta_per_4096_values(block, slices):
+    """The kernel's CTAs per row (a cluster's size): one per CTA_ROW
+    values, at most CLUSTER; the slices, a multiple of 4 values over a
+    cluster, cover the row once."""
+    assert ttq.slices_for(block) == slices
+    part = block if slices == 1 else (-(-block // slices) + 3) // 4 * 4
+    starts = [min(block, r * part) for r in range(slices)]
+    ends = [min(block, s + part) for s in starts]
+    assert starts[0] == 0 and ends[-1] == block
+    assert all(a == b for a, b in zip(ends[:-1], starts[1:]))
+
+
+def test_topk_quant_refuses_mixed_leaves_and_bad_arguments():
+    x = torch.zeros(10)
     with pytest.raises(ValueError):
-        topk_quant(x, block=2 * ttq.MAX_BLOCK)
+        ttq.topk_quant_leaves([x, x.to(torch.bfloat16)])
+    with pytest.raises(ValueError):
+        ttq.topk_quant_leaves([])
+    with pytest.raises(TypeError):
+        topk_quant(torch.zeros(10, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        topk_quant(x, block=0)
+    with pytest.raises(ValueError):
+        topk_quant(x, bits=9)
+
+
+# the card cases of chip_smoke.py phase 3: (values, block, dtype, bits,
+# iters, kind)
+CARD_TOPK_CASES = (
+    [(206410, b, d, bits, 16, "gauss") for b in (4096, 16384)
+     for d in ("float32", "bfloat16") for bits in (8, 4)]
+    + [(206410, 1024, "float32", 8, 16, "gauss"),
+       (206410, 16384, "float32", 2, 16, "gauss"),
+       (206410, 16384, "float32", 8, 12, "gauss"),
+       (206410, 16384, "bfloat16", 8, 5, "gauss"),
+       (206410, 32768, "float32", 8, 16, "gauss"),
+       (60001, 60001, "float32", 8, 16, "ties"),
+       (200704, 200704, "float32", 8, 12, "gauss"),
+       (200704, 200704, "bfloat16", 4, 16, "gauss"),
+       (400003, 65536, "float32", 8, 16, "ties"),
+       (400003, 400003, "float32", 8, 16, "ties")])
 
 
 @pytest.mark.cuda
 def test_topk_quant_kernel_matches_plain_on_card(card):
-    rng = np.random.RandomState(11)
-    for block in (4096, 16384):
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.from_numpy(rng.randn(3 * block + 5).astype(
-                np.float32)).to(card).to(dtype)
-            before = ttq.LAUNCHES
-            lv, sc = topk_quant(x, p_s=0.25, bits=8, block=block)
-            assert ttq.LAUNCHES == before + 1
-            lp, sp = topk_quant_plain(_pad_rows(x, block), 0.25, 8)
-            assert torch.equal(lv, lp) and torch.equal(sc, sp)
+    """Phase 3's cases (blocks from 1,024 to 400,003: one-CTA rows,
+    clusters, and cluster slices read from device memory) and the CNN's
+    8 leaves in one launch, each identical to the plain version."""
+    for n, block, dtype, bits, iters, kind in CARD_TOPK_CASES:
+        x = torch.from_numpy(_rows_of(kind, n, n + block)).to(card).to(
+            getattr(torch, dtype))
+        before = ttq.LAUNCHES
+        lv, sc = topk_quant(x, bits=bits, iters=iters, block=block)
+        assert ttq.LAUNCHES == before + 1
+        lp, sp = topk_quant_plain(_pad_rows(x, block), 0.25, bits, iters)
+        where = (n, block, dtype, bits, iters, kind)
+        assert torch.equal(lv, lp) and torch.equal(sc, sp), where
+    tree = _cnn_tree(14)
+    xs = [torch.from_numpy(tree[k]).to(card) for k in sorted(tree)]
+    before = ttq.LAUNCHES
+    got = ttq.topk_quant_leaves(xs)
+    assert ttq.LAUNCHES == before + 1
+    for x, (lv, sc) in zip(xs, got):
+        lp, sp = topk_quant_plain(_pad_rows(x, ttq.DEFAULT_BLOCK))
+        assert torch.equal(lv, lp) and torch.equal(sc, sp)
