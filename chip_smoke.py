@@ -45,8 +45,32 @@ Phases, in order; the script exits nonzero if any of them fails:
 9. The card against the CPU for SSM serving, at the smoke config from the
    same weights: prefill logits within 1e-4, greedy tokens equal.
 10. Kernel C's time at the admission shape against its plain version and
-   its bound; then one JSON line of kernels, the card's ``nvidia-smi``
-   line, and the last line ``{"ok": true, "device": {...}}``.
+   its bound.
+11. Kernel B's channel form (``ops.threshold_channel_leaves``, the cohort
+   trainer's threshold channel) against its plain version: bit-identical
+   outputs over Set_s x Set_q at iters 12 and 6, the CNN's 8 leaves
+   stacked over C = 1, 2, 8 and 16 devices in f32, C = 8 in bf16, and a
+   ragged list with a row of 140,001 tied magnitudes; 2 launches per
+   application for the CNN, one per cluster size for the ragged list.
+12. The cohort main path at full width: TEASQ on the paper's CNN with 100
+   devices, 60,000/10,000 samples, ``cohort_size=8``, ``codec="packed"``
+   and the schedule (p_s0_idx 4, p_q0_idx 3, step 2) through
+   ``make_sim(...).run(max_rounds=8)``, every launch counter set to 0
+   before and read after: kernel B's channel form must have run inside
+   the simulated run.  Then one flush of 8 devices timed: training alone
+   and the channel alone (host clock, synchronized).
+13. The cohort path, card against CPU: 8 devices, 640 samples,
+   ``cohort_size=4``, from the same weights.
+14. The five other protocols (fedasync, port, asofed, fedavg, moon): each
+   on the card at the full fleet for 3 rounds, then card against CPU at 8
+   devices from the same weights.
+15. Kernel B's channel form timed at the up-channel shape of a full cohort
+   of 8 against its plain version and its byte bound; then one JSON line
+   of kernels, the card's ``nvidia-smi`` line, and the last line
+   ``{"ok": true, "device": {...}}``.
+
+Every card-against-CPU comparison asks for equal time, round and byte
+columns and accuracy within ``ACC_TOL``.
 
 It needs one card, imports nothing of JAX, and runs from the root of a
 checkout.
@@ -164,7 +188,7 @@ class Smoke:
     rehearsal passes the CPU and a smaller fleet)."""
 
     def __init__(self, dev="cuda", n_devices=100, n_train=60000,
-                 n_test=10000, ssm_smoke=False):
+                 n_test=10000, ssm_smoke=False, channel_cs=(1, 2, 8, 16)):
         import numpy as np
         import torch
         from repro_torch.configs.base import get_config, get_smoke_config
@@ -179,6 +203,9 @@ class Smoke:
             "mamba2-370m")
         self.serve_shape = dict(slots=4, requests=8, gen=16,
                                 prompt_len=64 if ssm_smoke else 512)
+        # phase 11: the cohort sizes of the channel form's sweep
+        self.channel_cs = channel_cs
+        self._full = None
 
     def sync(self):
         if self.dev.type == "cuda":
@@ -462,31 +489,42 @@ class Smoke:
         self.trained = w
 
     # -- phase 5 ------------------------------------------------------------
-    def card_vs_cpu(self):
+    def compare_with_cpu(self, method, **kw):
+        """One small run (8 devices, 640 samples) of ``method`` on the card
+        and on the CPU from the same weights: the time, round and byte
+        columns must be equal and the accuracy within ACC_TOL.  Returns
+        (entries, rounds, max |accuracy diff|)."""
         from repro_torch.fl.protocols import make_setup, run_method
         from repro_torch.utils.tree import to_numpy
         data, parts, w0 = make_setup(n_devices=8, iid=True, seed=3,
                                      n_train=640, n_test=320, device="cpu")
         w_np = to_numpy(w0)
-        kw = dict(time_budget=4.0, epochs=1, seed=3, p_s=0.25, p_q=8,
-                  codec="packed")
+        kw = dict(dict(time_budget=4.0, epochs=1, seed=3, p_s=0.25, p_q=8),
+                  **kw)
         hists = {}
         for dev in (self.dev.type, "cpu"):
             _, _, w = make_setup(n_devices=8, iid=True, seed=3, n_train=640,
                                  n_test=320, device=dev, init_params=w_np)
-            hists[dev] = run_method("teasq", data, parts, w, device=dev,
+            hists[dev] = run_method(method, data, parts, w, device=dev,
                                     **kw)
         hc, hp = hists[self.dev.type], hists["cpu"]
-        self.expect(len(hc) == len(hp), f"{len(hc)} vs {len(hp)} entries")
+        self.expect(len(hc) == len(hp), f"{method}: {len(hc)} vs {len(hp)} "
+                    f"entries")
         cols = ("time", "round", "bytes_up", "bytes_down",
                 "max_model_bytes_up", "max_model_bytes_down")
         for a, b in zip(hc, hp):
             for c in cols:
                 self.expect(getattr(a, c) == getattr(b, c),
-                            f"{c}: {getattr(a, c)} vs {getattr(b, c)}")
+                            f"{method} {c}: {getattr(a, c)} vs "
+                            f"{getattr(b, c)}")
         d = max(abs(a.accuracy - b.accuracy) for a, b in zip(hc, hp))
-        self.expect(d <= ACC_TOL, f"accuracy differs by {d} > {ACC_TOL}")
-        print(f"   {len(hc)} entries, {hc[-1].round} rounds: time, round "
+        self.expect(d <= ACC_TOL, f"{method}: accuracy differs by {d} > "
+                    f"{ACC_TOL}")
+        return len(hc), hc[-1].round, d
+
+    def card_vs_cpu(self):
+        n, rounds, d = self.compare_with_cpu("teasq", codec="packed")
+        print(f"   {n} entries, {rounds} rounds: time, round "
               f"and byte columns equal; max |accuracy diff| {d:.4f} "
               f"(tolerance {ACC_TOL})")
 
@@ -917,6 +955,265 @@ class Smoke:
               "is null.")
 
 
+    # -- phase 11 -----------------------------------------------------------
+    def cnn_stack(self, c: int, seed: int):
+        """The CNN's 8 leaves (sorted by name) stacked over ``c`` devices,
+        seeded normal values at scale 0.05."""
+        np, torch = self.np, self.torch
+        rng = np.random.RandomState(seed)
+        return [torch.from_numpy((rng.randn(c, *v.shape) * 0.05).astype(
+            np.float32)).to(self.dev)
+            for _, v in sorted(self.cnn_like(0).items())]
+
+    def channel_b(self):
+        np, torch = self.np, self.torch
+        from repro_torch.core.dynamic import DEFAULT_SET_Q, DEFAULT_SET_S
+        from repro_torch.kernels import topk_quant as B
+        from repro_torch.kernels.ops import threshold_channel_leaves
+        card = self.dev.type == "cuda"
+        checked, worst = 0, 0.0
+
+        def check(xs, p_s, p_q, iters, launches, where):
+            before = B.LAUNCHES
+            got = threshold_channel_leaves(xs, p_s, p_q, iters)
+            n = B.LAUNCHES - before
+            want = launches if card and (p_s, p_q) != (1.0, 32) else 0
+            self.expect(n == want, f"{n} launches, not {want}, {where}")
+            plain = B.threshold_channel_plain(xs, p_s, p_q, iters)
+            for i, (g, w) in enumerate(zip(got, plain)):
+                view = torch.int16 if g.dtype == torch.bfloat16 else \
+                    torch.int32
+                self.expect(g.shape == w.shape and g.dtype == w.dtype
+                            and torch.equal(g.view(view), w.view(view)),
+                            f"channel form leaf {i} != plain {where}")
+            return max(float((g.float() - w.float()).abs().max())
+                       for g, w in zip(got, plain))
+
+        for c in self.channel_cs:
+            xs = self.cnn_stack(c, 30 + c)
+            for p_s in DEFAULT_SET_S:
+                for p_q in DEFAULT_SET_Q:
+                    for iters in (12, 6):
+                        worst = max(worst, check(
+                            xs, p_s, p_q, iters, 2,
+                            f"(C={c}, p_s={p_s}, p_q={p_q}, iters={iters})"))
+                        checked += 1
+        xs = [x.to(torch.bfloat16) for x in self.cnn_stack(8, 40)]
+        for p_s, p_q in ((0.25, 8), (0.05, 16), (1.0, 4), (0.5, 32)):
+            worst = max(worst, check(xs, p_s, p_q, 12, 2,
+                                     f"(bf16, C=8, p_s={p_s}, p_q={p_q})"))
+            checked += 1
+        # a ragged list: a row of 140,001 tied magnitudes (a cluster a row,
+        # ties at every threshold), rows that take 2 and 3 CTAs, odd sizes
+        rng = np.random.RandomState(41)
+        ragged = [rng.choice(np.float32([0.5, -0.5, 0.25, -0.25, 0.125, 0.0]),
+                             (2, 140001)),
+                  (rng.randn(3, 5000) * 0.1).astype(np.float32),
+                  (rng.randn(2, 12288) * 0.1).astype(np.float32),
+                  (rng.randn(5, 7) * 0.1).astype(np.float32),
+                  (rng.randn(1, 4, 3) * 0.1).astype(np.float32)]
+        ragged = [torch.from_numpy(x).to(self.dev) for x in ragged]
+        plan = B.channel_plan([x[0].numel() for x in ragged],
+                              [x.shape[0] for x in ragged])
+        for p_s, p_q, iters in ((0.25, 8, 12), (0.01, 16, 12), (0.5, 4, 6),
+                                (0.1, 32, 12), (1.0, 8, 12)):
+            worst = max(worst, check(
+                ragged, p_s, p_q, iters, len(plan),
+                f"(ragged, p_s={p_s}, p_q={p_q}, iters={iters})"))
+            checked += 1
+        print(f"   {checked} cases (Set_s x Set_q x iters 12/6 on the CNN's "
+              f"8 leaves over C = {', '.join(map(str, self.channel_cs))}; "
+              f"bf16 at C = 8; a ragged list of {len(plan)} launches with a "
+              f"140,001-value row of ties): outputs bit-identical to the "
+              f"plain version (tolerance: exact); 2 launches per "
+              f"application for the CNN")
+        self.kernels["topk_quant"].update(channel_checked_cases=checked,
+                                          channel_max_abs_err=worst)
+
+    # -- phase 12 -----------------------------------------------------------
+    def full_setup(self):
+        """The paper's fleet (data, partitions, seeded weights) on the
+        device, made once for phases 12 and 14."""
+        from repro_torch.fl.protocols import make_setup
+        if self._full is None:
+            n_dev, n_train, n_test = self.fleet
+            t0 = time.perf_counter()
+            self._full = make_setup(n_devices=n_dev, iid=True, seed=0,
+                                    n_train=n_train, n_test=n_test,
+                                    device=self.dev)
+            print(f"   setup: {n_dev} devices, {n_train}/{n_test} samples "
+                  f"({time.perf_counter() - t0:.1f} s)")
+        return self._full
+
+    def cohort_path(self):
+        np, torch = self.np, self.torch
+        from repro_torch.core.dynamic import CompressionSchedule
+        from repro_torch.fl import engine as E
+        from repro_torch.fl.protocols import make_sim
+        from repro_torch.fl.simulator import SimConfig
+        from repro_torch.kernels.ops import threshold_channel_leaves
+        data, parts, w0 = self.full_setup()
+        n_dev = len(parts)
+        sched = CompressionSchedule(p_s0_idx=4, p_q0_idx=3, step_size=2)
+        cfg = SimConfig(method="teasq", n_devices=n_dev, c_fraction=0.1,
+                        mu=0.01, alpha=0.6, seed=0, codec="packed",
+                        cohort_size=8, schedule=sched)
+        sim = make_sim(data, parts, w0, cfg, device=self.dev)
+        self.sync()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        hist = sim.run(time_budget=1e9, max_rounds=8)
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = self.read_counts()
+        st, rounds = sim.stats, hist[-1].round
+        b = launches["topk_quant"]
+        print(f"   launches inside sim.run: {launches}")
+        print(f"   rounds: {rounds}, dispatches {st.dispatches}, completions "
+              f"{st.completions}; flushes {st.flushes}, flushed tasks "
+              f"{st.flushed_tasks}; kernel B {b} launches, "
+              f"{b / max(st.flushes, 1):.2f} per flush")
+        print("   schedule over the rounds: " + ", ".join(
+            f"r{t}={sched.at_round(t)}" for t in range(rounds)))
+        print("   accuracy curve: " + ", ".join(
+            f"r{e.round}@{e.time:.3f}s={e.accuracy:.4f}" for e in hist))
+        print(f"   metered bytes: up {sim.channel.bytes_up}, down "
+              f"{sim.channel.bytes_down}")
+        print(f"   wall: {wall:.3f} s, {wall / max(rounds, 1):.4f} s per "
+              f"round [{self.card()}]")
+        self.expect(rounds >= 8, f"only {rounds} aggregation rounds")
+        self.expect(b > 0, "kernel B did not run inside sim.run")
+        self.expect(4 * st.flushes <= b <= 8 * st.flushes,
+                    f"{b} launches of kernel B for {st.flushes} flushes "
+                    f"(2 down and 2 up per flush group)")
+        self.expect(all(math.isfinite(e.accuracy) and 0 <= e.accuracy <= 1
+                        for e in hist), "accuracy not finite in [0, 1]")
+        w = sim.server.w
+        self.expect(all(bool(torch.isfinite(v).all()) for v in w.values()),
+                    "trained weights not finite")
+        self.kernels["topk_quant"].update(
+            channel_launches_in_sim_run=b, cohort_flushes=st.flushes,
+            channel_launches_per_flush=b / max(st.flushes, 1),
+            cohort_wall_s_per_round=wall / max(rounds, 1))
+        # one flush of a full cohort, timed: 8 devices from the trained
+        # model, 2 epochs of 15 steps padded to 32, at (0.25, 8)
+        tr = sim.trainer
+        names = sorted(w)
+        wv = {k: w[k][None] for k in names}
+        rng = np.random.RandomState(5)
+        n_k, bs = len(parts[0]), cfg.batch_size
+        steps = n_k // bs
+        bidx = np.zeros((32, 8, bs), np.int64)
+        valid = np.zeros((32, 8), np.float32)
+        for i in range(8):
+            rows = [rng.permutation(n_k)[s * bs:(s + 1) * bs]
+                    for _ in range(cfg.epochs) for s in range(steps)]
+            bidx[:len(rows), i] = rows
+            valid[:len(rows), i] = 1.0
+        dev = self.dev
+        args = (wv, torch.zeros(8, dtype=torch.int64, device=dev), tr.xs,
+                tr.ys, torch.arange(8, device=dev),
+                torch.from_numpy(bidx).to(dev),
+                torch.from_numpy(valid).to(dev))
+
+        def flush(p_s, p_q):
+            return E._cohort_round(*args, cohort_loss=sim.task.cohort_loss,
+                                   lr=cfg.lr, mu=cfg.mu, p_s=p_s, p_q=p_q,
+                                   iters=12)
+
+        flush(0.25, 8)
+        whole, up = self.timed(lambda: flush(0.25, 8), 5)
+        train, _ = self.timed(lambda: flush(1.0, 32), 5)
+        ups = [up[k] for k in names]
+        down_in = [wv[k] for k in names]
+        chan, _ = self.timed(lambda: (
+            threshold_channel_leaves(down_in, 0.25, 8, 12),
+            threshold_channel_leaves(ups, 0.25, 8, 12)), 20)
+        print(f"   one flush of 8 devices (32 steps, (0.25, 8)): "
+              f"{whole:.2f} ms of wall, of which training alone "
+              f"{train:.2f} ms and the channel (down for 1 version, up for "
+              f"8 devices: 4 launches) {chan:.3f} ms (host clock, "
+              f"synchronized) [{self.card()}]")
+        self.kernels["topk_quant"].update(flush_wall_ms=whole,
+                                          flush_train_ms=train,
+                                          flush_channel_ms=chan)
+        self.cohort_up = ups
+
+    # -- phase 13 -----------------------------------------------------------
+    def cohort_card_vs_cpu(self):
+        n, rounds, d = self.compare_with_cpu("teasq", cohort_size=4,
+                                             codec="packed")
+        print(f"   cohort_size=4: {n} entries, {rounds} rounds: time, round "
+              f"and byte columns equal; max |accuracy diff| {d:.4f} "
+              f"(tolerance {ACC_TOL})")
+
+    # -- phase 14 -----------------------------------------------------------
+    def protocols(self):
+        torch = self.torch
+        from repro_torch.fl.protocols import make_sim
+        from repro_torch.fl.simulator import SimConfig
+        data, parts, w0 = self.full_setup()
+        for method in ("fedasync", "port", "asofed", "fedavg", "moon"):
+            cfg = SimConfig(method=method, n_devices=len(parts), seed=0)
+            sim = make_sim(data, parts, w0, cfg, device=self.dev)
+            t0 = time.perf_counter()
+            hist = sim.run(time_budget=1e9, max_rounds=3)
+            self.sync()
+            wall = time.perf_counter() - t0
+            self.expect(hist[-1].round == 3, f"{method}: {hist[-1].round} "
+                        f"rounds")
+            self.expect(all(math.isfinite(e.accuracy)
+                            and 0 <= e.accuracy <= 1 for e in hist),
+                        f"{method}: accuracy not finite in [0, 1]")
+            self.expect(all(bool(torch.isfinite(v).all())
+                            for v in sim.server.w.values()),
+                        f"{method}: weights not finite")
+            n, rounds, d = self.compare_with_cpu(method)
+            print(f"   {method}: {len(parts)} devices, 3 rounds in "
+                  f"{wall:.3f} s, accuracy {hist[-1].accuracy:.4f}; card "
+                  f"against CPU at 8 devices: {n} entries, {rounds} rounds, "
+                  f"columns equal, max |accuracy diff| {d:.4f}")
+        n, rounds, d = self.compare_with_cpu("fedavg", cohort_size=4)
+        print(f"   fedavg with cohort_size=4 (the serial fallback): {n} "
+              f"entries, columns equal, max |accuracy diff| {d:.4f}")
+
+    # -- phase 15 -----------------------------------------------------------
+    def timings_channel(self):
+        from repro_torch.kernels import topk_quant as B
+        from repro_torch.kernels.ops import threshold_channel_leaves
+        xs = getattr(self, "cohort_up", None) or self.cnn_stack(8, 50)
+        n = sum(x.numel() for x in xs)
+        run = lambda: threshold_channel_leaves(xs, 0.25, 8, 12)  # noqa: E731
+        before = B.LAUNCHES
+        run()
+        per_call = B.LAUNCHES - before
+        ms = time_cuda(run)
+        dev_ms = kernel_device_ms(run, "topk_quant") * per_call
+        plain = time_cuda(lambda: B.threshold_channel_plain(xs, 0.25, 8, 12),
+                          iters=10)
+        # each value read once and its dequantized value written once; 12
+        # bisection steps and 5 operations of quantization per value
+        nbytes = 8 * n
+        nops = (12 + 5) * n
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        self.kernels["topk_quant"].update(
+            channel_ms=ms, channel_device_ms=dev_ms, channel_plain_ms=plain,
+            channel_bound_ms=bound,
+            channel_bound_by="bytes" if t_bytes >= t_ops else "operations",
+            channel_bytes=nbytes, channel_operations=nops,
+            channel_launches_per_call=per_call)
+        print(f"   threshold channel, up shape of a full cohort (8 x "
+              f"{n // 8} values, (0.25, 8, 12), {per_call} launches): "
+              f"{ms * 1e3:.2f} us per application (events over 50), "
+              f"{dev_ms * 1e3:.2f} us on the card (profiler), plain "
+              f"{plain * 1e3:.1f} us; bound {bound * 1e3:.3f} us ({nbytes} "
+              f"bytes, {nops} ops) [{self.card()}]")
+        print("   No single PyTorch call computes this function: "
+              "library_ms is null.")
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1015,6 +1312,14 @@ def main() -> int:
             s.serve_ssm)
     s.phase("9. the card against the CPU, SSM serving", s.ssm_card_vs_cpu)
     s.phase("10. kernel C time", s.timings_c)
+    s.phase("11. kernel B's channel form against its plain version",
+            s.channel_b)
+    s.phase("12. cohort main path: TEASQ, cohort 8, 100 devices, on cuda",
+            s.cohort_path)
+    s.phase("13. the card against the CPU, cohort path",
+            s.cohort_card_vs_cpu)
+    s.phase("14. fedasync, port, asofed, fedavg and moon", s.protocols)
+    s.phase("15. kernel B's channel form, timed", s.timings_channel)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failures:
         die("failed phases: " + "; ".join(s.failures))

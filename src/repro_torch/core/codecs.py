@@ -20,8 +20,8 @@ event timelines stay comparable between the two packages.  A deterministic
 tensors, its plain version for CPU tensors.
 
 Registered: :class:`IdentityCodec`, :class:`DenseRefCodec`,
-:class:`PackedBitstreamCodec`.  The in-graph ``threshold`` codec arrives
-with the cohort trainer.
+:class:`ThresholdGraphCodec` (the cohort trainer's in-graph channel; on
+the card kernel B's channel form) and :class:`PackedBitstreamCodec`.
 """
 from __future__ import annotations
 
@@ -36,14 +36,14 @@ import torch
 from repro_torch.core.compression import (FLOAT_BITS, compress_pytree,
                                           compress_tensor, decompress_pytree,
                                           decompress_tensor,
+                                          expected_pytree_wire_bytes,
                                           expected_tensor_wire_bits,
                                           index_bits, pytree_dense_bytes,
-                                          pytree_wire_bytes, topk_count)
+                                          pytree_wire_bytes,
+                                          sparsify_quantize_threshold,
+                                          topk_count)
 from repro_torch.kernels.bitpack import BitReader, pack_segments
 from repro_torch.utils.tree import Params, leaves, unflatten
-
-# where the not-yet-ported codecs arrive
-_LATER = {"threshold": "the cohort-trainer slice"}
 
 
 def _device_of(tree: Params) -> torch.device:
@@ -138,6 +138,44 @@ class DenseRefCodec(Codec):
 
     def wire_bytes(self, tree) -> int:
         return _packed_price(tree, self.p_s, self.p_q)
+
+
+@dataclasses.dataclass(frozen=True)
+class ThresholdGraphCodec(Codec):
+    """The in-graph channel: bisection-threshold sparsification +
+    deterministic quantization (``sparsify_quantize_threshold``), the
+    operator the cohort trainer applies down and up.  ``apply_tree`` and
+    ``encode`` run it through ``kernels.ops.threshold_channel_leaves``:
+    kernel B's channel form on the card, its plain version on the CPU.
+    ``encode`` ignores ``rng`` (the rounding is deterministic)."""
+
+    p_s: float = 1.0
+    p_q: int = FLOAT_BITS
+    iters: int = 12               # threshold bisection steps
+
+    name: ClassVar[str] = "threshold"
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """The lossy operator on one tensor (shape-preserving)."""
+        return sparsify_quantize_threshold(x, self.p_s, self.p_q, self.iters)
+
+    def apply_tree(self, tree: Params) -> Params:
+        """The operator on every leaf of a dict, each leaf one row."""
+        from repro_torch.kernels.ops import threshold_channel_leaves
+        names = sorted(tree)
+        xs = [tree[k] for k in names]
+        out = threshold_channel_leaves([x.reshape(1, -1) for x in xs],
+                                       self.p_s, self.p_q, self.iters)
+        return unflatten(names, [o.view(x.shape) for o, x in zip(out, xs)])
+
+    def encode(self, tree, *, rng=None) -> Wire:
+        return Wire(self.name, self.apply_tree(tree), self.wire_bytes(tree))
+
+    def decode(self, wire: Wire):
+        return wire.payload
+
+    def wire_bytes(self, tree) -> int:
+        return expected_pytree_wire_bytes(tree, self.p_s, self.p_q)
 
 
 def _packed_price(tree: Any, p_s: float, p_q: int) -> int:
@@ -251,12 +289,14 @@ class PackedBitstreamCodec(Codec):
 # ----------------------------------------------------------------------
 CODECS: Dict[str, Type[Codec]] = {
     cls.name: cls for cls in (IdentityCodec, DenseRefCodec,
-                              PackedBitstreamCodec)
+                              ThresholdGraphCodec, PackedBitstreamCodec)
 }
 
 
 @functools.lru_cache(maxsize=256)
-def _make_codec(name: str, p_s: float, p_q: int) -> Codec:
+def _make_codec(name: str, p_s: float, p_q: int, iters: int) -> Codec:
+    if name == "threshold":
+        return ThresholdGraphCodec(p_s, p_q, iters)
     return CODECS[name](p_s, p_q) if name != "identity" else IdentityCodec()
 
 
@@ -266,16 +306,12 @@ def resolve_codec(name: str, p_s: float = 1.0, p_q: int = FLOAT_BITS,
 
     The uncompressed point short-circuits to :class:`IdentityCodec` for
     every family (the simulators' dense fast path).  Instances are cached:
-    codecs are frozen and stateless.  ``iters`` belongs to the threshold
-    codec, which is not ported yet.
+    codecs are frozen and stateless.  ``iters`` is the threshold codec's
+    bisection steps.
     """
-    if name in _LATER:
-        raise NotImplementedError(
-            f"codec {name!r} is not ported yet: it arrives with "
-            f"{_LATER[name]}")
     if name not in CODECS:
         raise ValueError(
             f"unknown codec {name!r}; expected one of {sorted(CODECS)}")
     if p_s >= 1.0 and p_q >= FLOAT_BITS:
-        return _make_codec("identity", 1.0, FLOAT_BITS)
-    return _make_codec(name, float(p_s), int(p_q))
+        return _make_codec("identity", 1.0, FLOAT_BITS, iters)
+    return _make_codec(name, float(p_s), int(p_q), int(iters))

@@ -5,17 +5,26 @@ Paper Algorithms 3 (compress) and 4 (decompress):
   2. quantize the kept values to ``p_q`` bits (QSGD-style uniform levels);
   3. pack (values, indices) -- zeros are not transmitted.
 
-This is the numpy half of the JAX package's module, kept bit for bit:
-``compress_tensor`` (with the smallest-index tie rule), its inverse, and
-the shape-only size model.  Stochastic rounding draws from a numpy
-``RandomState`` in the same order as the JAX package, so event timelines
-stay comparable between the two.  Pytrees are parameter dicts, walked in
-sorted-key order (``repro_torch.utils.tree.leaves``).
+Two families of entry points, as in the JAX package's module:
+
+* the in-graph primitives (``topk_mask`` ... ``sparsify_quantize_threshold``)
+  on tensors, on their device, bit for bit with the JAX functions under
+  ``jax.jit``.  XLA turns a division by a constant into a product with its
+  f32 reciprocal, so the kept fraction is ``count * f32(1/n)`` and the
+  dequantized value ``(level * scale) * f32(1/L)``; the ``_rows`` forms
+  take one tensor per row of a 2-D input (the cohort trainer's stacked
+  devices, as ``jax.vmap`` gives them);
+* the host half, kept bit for bit: ``compress_tensor`` (with the
+  smallest-index tie rule), its inverse, and the shape-only size model.
+  Stochastic rounding draws from a numpy ``RandomState`` in the same order
+  as the JAX package, so event timelines stay comparable between the two.
+  Pytrees are parameter dicts, walked in sorted-key order
+  (``repro_torch.utils.tree.leaves``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +43,125 @@ def _host(x: Any) -> np.ndarray:
 
 def _numel(x: Any) -> int:
     return int(np.prod(tuple(x.shape), dtype=np.int64))
+
+
+def recip32(n: int) -> float:
+    """``f32(1) / f32(n)``: the constant XLA multiplies by where the JAX
+    code divides by ``n``."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
+# ----------------------------------------------------------------------
+# in-graph primitives (tensors on their device)
+# ----------------------------------------------------------------------
+def topk_mask(x: torch.Tensor, p_s: float) -> torch.Tensor:
+    """Boolean mask of the top ``p_s`` fraction of |x| (global per
+    tensor); magnitudes tied with the k-th largest are all kept."""
+    if p_s >= 1.0:
+        return torch.ones_like(x, dtype=torch.bool)
+    k = max(1, int(round(p_s * x.numel())))
+    ax = x.abs()
+    thresh = torch.topk(ax.reshape(-1), k).values[-1]
+    return ax >= thresh
+
+
+def quantize_levels(x: torch.Tensor, bits: int, key: Any = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """QSGD-style symmetric quantization to ``bits`` bits, rounding to
+    nearest (half to even): (f32 levels in [-L, L], f32 scale)."""
+    if key is not None:
+        raise NotImplementedError(
+            "stochastic rounding in the in-graph quantizer draws from "
+            "jax.random; it arrives with ROADMAP.md Queue A item 8 (the "
+            "datacenter round, core/fed_step.py)")
+    if bits >= FLOAT_BITS:
+        return x, torch.tensor(1.0, dtype=torch.float32, device=x.device)
+    L = 2 ** (bits - 1) - 1
+    # the max in x's own dtype, as the JAX function takes it
+    scale = torch.clamp(x.abs().max(), min=1e-12).to(torch.float32)
+    y = torch.round(x.to(torch.float32) / scale * L)
+    return torch.clamp(y, -L, L), scale
+
+
+def dequantize_levels(levels: torch.Tensor, scale: torch.Tensor,
+                      bits: int) -> torch.Tensor:
+    if bits >= FLOAT_BITS:
+        return levels
+    L = 2 ** (bits - 1) - 1
+    return levels.to(torch.float32) * scale * recip32(L)
+
+
+def sparsify_quantize_dense(x: torch.Tensor, p_s: float, p_q: int,
+                            key: Any = None) -> torch.Tensor:
+    """Dense compress -> decompress round trip with exact Top-K."""
+    mask = topk_mask(x, p_s)
+    kept = torch.where(mask, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+    levels, scale = quantize_levels(kept, p_q, key)
+    return dequantize_levels(levels, scale, p_q).to(x.dtype) * mask
+
+
+def approx_topk_threshold_rows(ax: torch.Tensor, p_s: float,
+                               iters: int = 12) -> torch.Tensor:
+    """Per row of ``ax`` (R, n) = |x|, the magnitude threshold keeping
+    about ``p_s`` of the row: ``iters`` bisection steps on ``mean(ax >=
+    mid) > p_s`` from (0, max + 1e-12) -> (R,) f32."""
+    n = ax.shape[1]
+    ps = torch.tensor(p_s, dtype=torch.float32, device=ax.device)
+    lo = torch.zeros(ax.shape[0], dtype=torch.float32, device=ax.device)
+    hi = ax.max(dim=1).values + 1e-12
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        # the count is exact; XLA multiplies it by f32(1/n)
+        frac = (ax >= mid[:, None]).sum(dim=1).to(torch.float32) * \
+            recip32(n)
+        keep = frac > ps
+        lo, hi = torch.where(keep, mid, lo), torch.where(keep, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+def approx_topk_threshold(ax: torch.Tensor, p_s: float,
+                          iters: int = 12) -> torch.Tensor:
+    """The threshold of the whole tensor ``ax`` = |x| (a 0-d f32 tensor):
+    the fixed-iteration bisection kernel B runs."""
+    return approx_topk_threshold_rows(ax.reshape(1, -1), p_s, iters)[0]
+
+
+def sparsify_quantize_threshold_rows(x: torch.Tensor, p_s: float, p_q: int,
+                                     iters: int = 12) -> torch.Tensor:
+    """:func:`sparsify_quantize_threshold` of each row of ``x`` (R, n),
+    in ``x``'s dtype."""
+    if p_s >= 1.0 and p_q >= FLOAT_BITS:
+        return x
+    xf = x.to(torch.float32)
+    mask = None
+    kept = xf
+    if p_s < 1.0:
+        ax = xf.abs()
+        mask = ax >= approx_topk_threshold_rows(ax, p_s, iters)[:, None]
+        kept = torch.where(mask, xf, torch.zeros((), device=x.device))
+    if p_q < FLOAT_BITS:
+        L = 2 ** (p_q - 1) - 1
+        scale = torch.clamp(kept.abs().max(dim=1, keepdim=True).values,
+                            min=1e-12)
+        levels = torch.clamp(torch.round(kept / scale * L), -L, L)
+        kept = levels * scale * recip32(L)
+        if mask is not None:
+            kept = torch.where(mask, kept, torch.zeros((), device=x.device))
+    return kept.to(x.dtype)
+
+
+def sparsify_quantize_threshold(x: torch.Tensor, p_s: float, p_q: int,
+                                iters: int = 12) -> torch.Tensor:
+    """Approximate in-graph channel: bisection-threshold sparsification
+    (not exact Top-K) + deterministic uniform quantization, over the whole
+    tensor; the kept fraction is within ~2^-iters (+ magnitude ties) of
+    ``p_s``.  The cohort trainer's channel; kernel B's channel form
+    (``kernels.ops.threshold_channel_leaves``) computes it on the card."""
+    if p_s >= 1.0 and p_q >= FLOAT_BITS:
+        return x
+    return sparsify_quantize_threshold_rows(
+        x.reshape(1, -1), p_s, p_q, iters).reshape(x.shape)
 
 
 def topk_count(n: int, p_s: float) -> int:

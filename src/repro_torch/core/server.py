@@ -4,8 +4,9 @@ Distributor: admission-controls task requests with the C-fraction gate.
 Receiver/Updater: caches K = ceil(N*gamma) updates, then performs the
 staleness-weighted aggregation of Eqs. 6-10 on the parameters' device.
 
-``SERVERS`` registers the server backends; this slice ports ``"single"``.
-The sharded backend arrives with the sharding slice.
+``SERVERS`` registers the server backends; the port has ``"single"``.
+The sharded backend arrives with ROADMAP.md Queue A item 8 and raises
+until then.
 """
 from __future__ import annotations
 
@@ -74,7 +75,7 @@ class TeasqServer:
 SERVERS: Dict[str, type] = {"single": TeasqServer}
 
 # where the not-yet-ported backends arrive
-_LATER = {"sharded": "the sharding slice"}
+_LATER = {"sharded": "ROADMAP.md Queue A item 8 (sharding)"}
 
 
 def make_server(name: str, w_init: Params, cfg: ServerConfig, *,

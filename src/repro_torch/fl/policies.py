@@ -4,10 +4,11 @@ A :class:`CodecPolicy` maps a round-``t`` dispatch to a device to a
 :class:`~repro_torch.core.codecs.Codec` at a ``(p_s, p_q)`` operating point;
 ``SimConfig.codec_policy`` selects one from :data:`POLICIES`.
 
-This slice ports ``static`` (the protocol's own global point for every
+The port has ``static`` (the protocol's own global point for every
 device, the default).  ``tier_aware`` and ``staleness_aware``, with the
 per-device dispatch context and staleness estimates they read, arrive with
-the policies-and-scenarios slice; ``make_policy`` raises for them.
+ROADMAP.md Queue A item 3 (the other policies and scenarios);
+``make_policy`` raises for them until then.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from repro_torch.core.codecs import Codec, resolve_codec
 from repro_torch.fl.simulator import SimConfig
 
 # where the not-yet-ported policies arrive
-_LATER = {name: "the policies-and-scenarios slice"
+_LATER = {name: "ROADMAP.md Queue A item 3 (the other policies and scenarios)"
           for name in ("tier_aware", "staleness_aware")}
 
 

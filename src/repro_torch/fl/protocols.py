@@ -1,4 +1,4 @@
-"""Protocol strategies + one-call drivers for the TEA family of the paper's §5.
+"""Protocol strategies + one-call drivers for the protocols of the paper's §5.
 
 A strategy answers three questions for the engine
 (``repro_torch.fl.engine.FLEngine``): which wire codec does a round-``t``
@@ -7,14 +7,16 @@ device side), and what happens when an update arrives at the server
 (Alg. 2: cached staleness-weighted aggregation).  ``make_strategy``
 resolves a method name from ``METHODS``.
 
-This slice ports the TEA family (``tea``, ``teas``, ``teaq``,
-``teastatic``, ``teasq``).  The immediate-mixing baselines (``fedasync``,
-``port``, ``asofed``) and the synchronous ones (``fedavg``, ``moon``)
-arrive with the other-protocols slice; ``make_strategy`` raises for them.
+Registered: the TEA family (``tea``, ``teas``, ``teaq``, ``teastatic``,
+``teasq``: cached staleness-weighted aggregation), the immediate-mixing
+baselines (``fedasync``, ``port``, ``asofed``: every arrival is mixed into
+the global model), and the synchronous ones (``fedavg``, ``moon``), which
+run the engine's ``_run_sync`` loop.  Every ``on_arrival`` resolves its
+payload through ``engine.resolve_payload``, so each protocol also runs on
+the cohort trainer's deferred tasks.
 """
 from __future__ import annotations
 
-import abc
 from typing import Any, ClassVar, Dict, List, Optional, Tuple, Type
 
 import numpy as np
@@ -23,21 +25,18 @@ import torch
 from repro_torch.core.codecs import Codec, resolve_codec
 from repro_torch.core.dynamic import (DEFAULT_SET_Q, DEFAULT_SET_S,
                                       greedy_search, greedy_search_per_tier)
+from repro_torch.core.staleness import staleness_weight
 from repro_torch.data.synthetic import partition_iid, partition_noniid_classes
 from repro_torch.fl.policies import make_policy
-from repro_torch.fl.simulator import LogEntry, SimConfig
+from repro_torch.fl.simulator import LogEntry, SimConfig, moon_local_train
 from repro_torch.fl.tasks import get_task
 from repro_torch.utils.tree import Params, from_numpy, resolve_device
 
 METHODS = ("fedavg", "fedasync", "tea", "teas", "teaq", "teastatic",
            "teasq", "moon", "port", "asofed")
 
-# where the not-yet-ported protocols arrive
-_LATER = {m: "the other-protocols slice"
-          for m in ("fedavg", "fedasync", "moon", "port", "asofed")}
 
-
-class ProtocolStrategy(abc.ABC):
+class ProtocolStrategy:
     """One FL protocol, bound to a SimConfig (see the JAX package's
     ``ProtocolStrategy`` for the full hook contract)."""
 
@@ -60,11 +59,17 @@ class ProtocolStrategy(abc.ABC):
     def local_train(self, engine, k: int, w: Params) -> Tuple[Params, int]:
         return engine.trainer.train(k, w)
 
-    @abc.abstractmethod
     def on_arrival(self, engine, now: float, k: int, payload: Any,
                    h: int) -> bool:
         """Server-side handling of a completed upload; True when an
         aggregation round finished."""
+        raise NotImplementedError(
+            f"{self.method} is not an event-driven protocol")
+
+    def aggregate(self, engine, updates: List[Params],
+                  weights: List[int]) -> Params:
+        raise NotImplementedError(
+            f"{self.method} does not run the synchronous loop")
 
 
 # -- TEA-Fed family: cached staleness-weighted aggregation (Alg. 2) -------
@@ -74,7 +79,7 @@ class TeaStrategy(ProtocolStrategy):
     method = "tea"
 
     def on_arrival(self, engine, now, k, payload, h) -> bool:
-        w_local, n_k = payload
+        w_local, n_k = engine.resolve_payload(payload)
         return engine.server.receive(w_local, h, n_k)
 
 
@@ -110,17 +115,88 @@ class TeasqStrategy(TeaStaticStrategy):
         return self.cfg.p_s, self.cfg.p_q
 
 
+# -- immediate-update async baselines -------------------------------------
+class FedAsyncStrategy(ProtocolStrategy):
+    """FedAsync (Xie et al.): mix every arrival straight into the global
+    model with a staleness-decayed weight; every arrival is a round."""
+
+    method = "fedasync"
+
+    def mixing_weight(self, staleness: int) -> float:
+        cfg = self.cfg
+        stale = min(staleness, cfg.max_staleness)   # capped poly decay
+        return cfg.alpha * float(staleness_weight(stale, cfg.a))
+
+    def on_arrival(self, engine, now, k, payload, h) -> bool:
+        w_local, _ = engine.resolve_payload(payload)
+        srv = engine.server
+        srv.active = max(0, srv.active - 1)
+        a_t = self.mixing_weight(srv.t - h)
+        srv.w = {n: a_t * w_local[n] + (1 - a_t) * srv.w[n]
+                 for n in sorted(srv.w)}
+        srv.t += 1
+        return True
+
+
+class PortStrategy(FedAsyncStrategy):
+    method = "port"
+
+    def mixing_weight(self, staleness):   # unbounded staleness, harder decay
+        return self.cfg.alpha * (staleness + 1.0) ** -1.0
+
+
+class AsoFedStrategy(FedAsyncStrategy):
+    method = "asofed"
+
+    def mixing_weight(self, staleness):   # linear decay
+        return self.cfg.alpha / (1.0 + staleness)
+
+
+# -- synchronous baselines -------------------------------------------------
+class FedAvgStrategy(ProtocolStrategy):
+    """Synchronous FedAvg: sample a round cohort, wait for the straggler,
+    merge by sample-count weights."""
+
+    method = "fedavg"
+    event_driven = False
+
+    def aggregate(self, engine, updates, weights):
+        wts = np.asarray(weights, np.float32)
+        wts /= wts.sum()
+        return {n: sum(float(w) * u[n] for w, u in zip(wts, updates))
+                for n in sorted(updates[0])}
+
+
+class MoonStrategy(FedAvgStrategy):
+    """MOON (Li et al., CVPR'21): FedAvg round structure with a model-
+    contrastive local objective against the device's previous model."""
+
+    method = "moon"
+
+    def local_train(self, engine, k, w_glob):
+        cfg = self.cfg
+        task = engine.task
+        idx = engine.partition_index(k)
+        prev = engine.prev_local.get(k, w_glob)
+        params = moon_local_train(
+            w_glob, prev, engine.x_train[idx], engine.y_train[idx],
+            epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
+            rng=engine.rng, forward_fn=task.forward,
+            features_fn=task.features)
+        engine.prev_local[k] = params
+        return params, len(idx)
+
+
 STRATEGIES: Dict[str, Type[ProtocolStrategy]] = {
-    cls.method: cls for cls in (TeaStrategy, TeasStrategy, TeaqStrategy,
-                                TeaStaticStrategy, TeasqStrategy)
+    cls.method: cls for cls in (
+        TeaStrategy, TeasStrategy, TeaqStrategy, TeaStaticStrategy,
+        TeasqStrategy, FedAsyncStrategy, PortStrategy, AsoFedStrategy,
+        FedAvgStrategy, MoonStrategy)
 }
+assert set(STRATEGIES) == set(METHODS)
 
 
 def make_strategy(method: str, cfg: SimConfig) -> ProtocolStrategy:
-    if method in _LATER:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: it arrives with "
-            f"{_LATER[method]}")
     try:
         return STRATEGIES[method](cfg)
     except KeyError:
@@ -162,7 +238,7 @@ def make_sim(data, parts, w0: Params, cfg: SimConfig, *, device=None):
     if cfg.scheduler != "heap":
         raise NotImplementedError(
             f"scheduler {cfg.scheduler!r} is not ported yet: it arrives "
-            f"with the batched-engine slice")
+            f"with ROADMAP.md Queue A item 4 (the batched engine)")
     return FLEngine(data, parts, w0, cfg, device=device)
 
 

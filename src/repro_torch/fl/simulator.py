@@ -3,17 +3,81 @@
 The JAX package's module also holds the legacy monolithic ``FLSimulator``;
 the port keeps only what its engine needs: :class:`SimConfig` (the same
 fields and defaults), :class:`LogEntry`, the scenario knobs
-(:class:`ScenarioConfig`, :class:`TierSpec`) and ``tier_assignment``.
+(:class:`ScenarioConfig`, :class:`TierSpec`), ``tier_assignment``, and
+MOON's local update (``moon_local_train``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core.dynamic import CompressionSchedule
 from repro_torch.core.latency import ComputeConfig, WirelessConfig
+from repro_torch.utils.tree import unflatten
+
+Params = Dict[str, torch.Tensor]
+
+
+def _moon_sgd_step(params: List[torch.Tensor], names: List[str],
+                   images: torch.Tensor, labels: torch.Tensor,
+                   z_glob: torch.Tensor, z_prev: torch.Tensor, lr: float,
+                   mu_con: float, tau: float, forward_fn: Callable,
+                   features_fn: Callable) -> List[torch.Tensor]:
+    """MOON (Li et al., CVPR'21) local step: CE + model-contrastive loss
+    pulling the representation toward the global model's (``z_glob``) and
+    away from the device's previous local model's (``z_prev``), then one
+    plain SGD step."""
+    for p in params:
+        p.requires_grad_(True)
+    w = unflatten(names, params)
+    logp = F.log_softmax(forward_fn(w, images), dim=-1)
+    ce = -torch.gather(logp, 1, labels.long()[:, None]).mean()
+    z = features_fn(w, images)
+
+    def cos(a, b):
+        return (a * b).sum(-1) / (torch.linalg.norm(a, dim=-1)
+                                  * torch.linalg.norm(b, dim=-1) + 1e-8)
+
+    sim_g = cos(z, z_glob) / tau
+    sim_p = cos(z, z_prev) / tau
+    lcon = -(sim_g - torch.logaddexp(sim_g, sim_p)).mean()
+    grads = torch.autograd.grad(ce + mu_con * lcon, params)
+    with torch.no_grad():
+        return [p - lr * g for p, g in zip(params, grads)]
+
+
+def moon_local_train(w_glob: Params, prev: Params, x: torch.Tensor,
+                     y: torch.Tensor, *, epochs: int, batch_size: int,
+                     lr: float, rng: np.random.RandomState,
+                     forward_fn: Callable, features_fn: Callable,
+                     mu_con: float = 1.0, tau: float = 0.5) -> Params:
+    """MOON device-side update: E epochs of ``_moon_sgd_step`` minibatches
+    from ``w_glob``, the minibatch order drawn from ``rng`` (one
+    permutation per epoch, as in the JAX package).  The global and
+    previous models' features carry no gradient."""
+    if forward_fn is None or features_fn is None:
+        raise ValueError(
+            "MOON's model-contrastive term needs the task's forward and "
+            "features heads (FLTask.forward / FLTask.features)")
+    names = sorted(w_glob)
+    params = [w_glob[k].detach() for k in names]
+    n = len(y)
+    for _ in range(epochs):
+        order = torch.from_numpy(rng.permutation(n)).to(x.device)
+        for s in range(0, n - batch_size + 1, batch_size):
+            sel = order[s:s + batch_size]
+            images, labels = x[sel], y[sel]
+            with torch.no_grad():
+                z_glob = features_fn(w_glob, images)
+                z_prev = features_fn(prev, images)
+            params = _moon_sgd_step(params, names, images, labels, z_glob,
+                                    z_prev, lr, mu_con, tau, forward_fn,
+                                    features_fn)
+    return unflatten(names, params)
 
 
 @dataclasses.dataclass
@@ -71,10 +135,11 @@ class ScenarioConfig:
 @dataclasses.dataclass
 class SimConfig:
     """Every knob of a simulated run, with the JAX package's names and
-    defaults (see its ``SimConfig`` docstring for each one).  This slice of
-    the port runs ``scheduler="heap"``, ``cohort_size=0``,
-    ``handler_mode="serial"`` and ``server="single"``; ``FLEngine`` raises
-    on any other value."""
+    defaults (see its ``SimConfig`` docstring for each one).  The port runs
+    ``scheduler="heap"``, ``handler_mode="serial"`` and
+    ``server="single"`` (``FLEngine`` raises on any other value until Queue
+    A items 4 and 8 port them), with the serial trainer or, at
+    ``cohort_size > 0``, the cohort trainer."""
 
     method: str = "teasq"
     task: str = "fmnist_cnn"

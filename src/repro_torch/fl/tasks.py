@@ -8,11 +8,15 @@ need to train one model family under any protocol:
 * ``loss(params, batch)`` -- the device objective f_k (Eq. 5's loss term),
   with ``batch = {"images": inputs, "labels": targets}``;
 * ``eval_metric(params, x, y)`` -- scalar in [0, 1], logged per round;
+* ``cohort_loss(stacked_params, images, labels)`` -- the vectorized
+  multi-device loss the cohort trainer differentiates (leaves with a
+  leading device axis C; inputs (C, B, ...)); ``None`` when the family has
+  no cohort form;
 * ``make_data(n_train, n_test, seed)`` -- the synthetic numpy dataset;
 * ``forward`` / ``features`` -- logits and penultimate representation.
 
-This slice registers the paper's ``fmnist_cnn``; the other families arrive
-with their slice.
+The port registers the paper's ``fmnist_cnn``; the other families arrive
+with ROADMAP.md Queue A item 6 and raise until then.
 """
 from __future__ import annotations
 
@@ -22,13 +26,14 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 
 from repro_torch.data.synthetic import make_fmnist_like
-from repro_torch.models.cnn import (cnn_accuracy, cnn_features, cnn_forward,
-                                    cnn_loss, init_cnn)
+from repro_torch.models.cnn import (cnn_accuracy, cnn_cohort_loss,
+                                    cnn_features, cnn_forward, cnn_loss,
+                                    init_cnn)
 
 __all__ = ["FLTask", "TASKS", "get_task", "register_task"]
 
 # where the not-yet-ported tasks arrive
-_LATER = {name: "the slice of the other tasks and models"
+_LATER = {name: "ROADMAP.md Queue A item 6 (the other model families)"
           for name in ("fmnist_mlp", "transformer_lm", "moe_lm", "ssm_lm")}
 
 
@@ -41,6 +46,7 @@ class FLTask:
     loss: Callable[..., Any]
     eval_metric: Callable[..., Any]
     make_data: Callable[[int, int, int], Dict[str, np.ndarray]]
+    cohort_loss: Optional[Callable[..., Any]] = None
     forward: Optional[Callable[..., Any]] = None
     features: Optional[Callable[..., Any]] = None
 
@@ -75,6 +81,7 @@ register_task(FLTask(
     eval_metric=cnn_accuracy,
     make_data=lambda n_train, n_test, seed: make_fmnist_like(
         n_train, n_test, seed=seed),
+    cohort_loss=cnn_cohort_loss,
     forward=cnn_forward,
     features=cnn_features,
 ))

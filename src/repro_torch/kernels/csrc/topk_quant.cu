@@ -71,6 +71,23 @@
 // expression as XLA's mean).  The other f32 expressions use the _rn
 // intrinsics, rintf rounds half to even, and the build passes -fmad=false
 // without --use_fast_math.
+//
+// The channel form (topk_channel_launch; the same kernel, kChannel = true)
+// is the cohort trainer's threshold channel: src/repro/core/compression.py
+// ::sparsify_quantize_threshold (:98) under jax.vmap over a leaf's leading
+// device axis, as jax.jit compiles it.  Each row is one device's leaf, of
+// its own length with no pad; the leaf table adds each leaf's row length,
+// its need and its output.  Differences from the block form:
+// * XLA multiplies by the f32 reciprocal of a constant divisor, so the kept
+//   fraction is count * f32(1/len) (the wrapper's need follows that rule,
+//   kernels/topk_quant.py::channel_need) and the value written is
+//   (level * scale) * f32(1/L), in the leaf's dtype and layout, 0 where
+//   dropped; levels stay f32 in registers, so bits 2..16 are taken, and
+//   bits = 32 writes x where kept;
+// * keep_all (p_s >= 1) skips the search and keeps every value;
+// * one launch per cluster size: the wrapper groups leaves by the CTAs a
+//   row takes, so the CNN's 8 leaves take 2 launches (fc1's rows on 8-CTA
+//   clusters, the other seven one CTA a row).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -99,11 +116,15 @@ __host__ __device__ __forceinline__ int slice_len(int block, int slices) {
 }
 
 // The leaves of one launch: data pointer, element count, first output row
-// (rows of a leaf are consecutive; first[0] is the launch's first row).
+// (rows of a leaf are consecutive; first[0] is the launch's first row);
+// the channel form adds each leaf's output, row length and need.
 struct Leaves {
   const void* x[kMaxLeaves];
+  void* out[kMaxLeaves];
   long long n[kMaxLeaves];
   long long first[kMaxLeaves];
+  int len[kMaxLeaves];
+  int need[kMaxLeaves];
   int count;
 };
 
@@ -210,9 +231,34 @@ __device__ __forceinline__ int quantize(float v, float thr, float scale,
   return (int)q;
 }
 
+// The channel form's value: 0 where dropped, x where kept without
+// quantization, else (level * scale) * f32(1/L) with the level kept in f32
+// (a level of -0 gives -0, as XLA's does).
+__device__ __forceinline__ float channel_value(float v, float thr,
+                                               float scale, float L,
+                                               float inv_l, bool quant) {
+  if (!(fabsf(v) >= thr)) return 0.0f;
+  if (!quant) return v;
+  float q = rintf(__fmul_rn(__fdiv_rn(v, scale), L));
+  q = fminf(fmaxf(q, -L), L);
+  return __fmul_rn(__fmul_rn(q, scale), inv_l);
+}
+
+// f32 -> bf16 bits, rounding to nearest even
+__device__ __forceinline__ unsigned short to_bf16(float f) {
+  const unsigned u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (unsigned short)(u >> 16 | 64);
+  return (unsigned short)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+// kChannel = false: the block form (levels and scales); true: the channel
+// form (row length and need per leaf, values written to the leaf's output).
+// A slice of at most smem_cap values is held in shared memory.
+template <bool kChannel>
 __global__ void __launch_bounds__(kThreads)
 topk_quant_kernel(const __grid_constant__ Leaves leaves, int is_bf16,
-                  int block, int slices, int need, int bits, int iters,
+                  int block_arg, int slices, int need_arg, int bits,
+                  int iters, int smem_cap, int keep_all,
                   int8_t* __restrict__ levels, float* __restrict__ scales) {
   extern __shared__ __align__(16) unsigned dyn[];
   __shared__ Shared sh;
@@ -227,6 +273,9 @@ topk_quant_kernel(const __grid_constant__ Leaves leaves, int is_bf16,
       lf += step;
     }
   }
+  const int block = kChannel ? leaves.len[lf] : block_arg;
+  const int need = kChannel ? leaves.need[lf] : need_arg;
+  if (keep_all) iters = 0;
   const long long row_start = (row - leaves.first[lf]) * block;
   const long long avail = leaves.n[lf] - row_start;   // values in the leaf
   const int valid = (int)(avail < block ? (avail > 0 ? avail : 0) : block);
@@ -234,7 +283,7 @@ topk_quant_kernel(const __grid_constant__ Leaves leaves, int is_bf16,
   const int part = slice_len(block, slices);
   const int s0 = min(block, rank * part), s1 = min(block, s0 + part);
   const int len = max(0, min(s1, valid) - s0);
-  const bool in_smem = part <= kMaxSlice;
+  const bool in_smem = part <= smem_cap;
   const long long g0 = row_start + s0;                // in the leaf
   const void* xg = leaves.x[lf];
   float* data = reinterpret_cast<float*>(dyn);
@@ -410,12 +459,58 @@ topk_quant_kernel(const __grid_constant__ Leaves leaves, int is_bf16,
 
   // quantize and store, 4 neighbouring values a thread (one 4-byte store
   // where the row's levels are aligned); the pad's levels are zeros
-  const float thr = midpoint(lo, hi);
+  const float thr = keep_all ? 0.0f : midpoint(lo, hi);
   const float scale = fmaxf(amax >= thr ? amax : 0.0f, 1e-12f);
+  const int plen = s1 - s0;
+  if constexpr (kChannel) {
+    // the dequantized values into the leaf (a row has no pad: plen == len)
+    const bool quant = bits < 32;
+    const float L = quant ? (float)((1 << (bits - 1)) - 1) : 1.0f;
+    const float inv_l = __fdiv_rn(1.0f, L);
+    const long long o0 = row_start + s0;
+    float* of = reinterpret_cast<float*>(leaves.out[lf]) + o0;
+    unsigned short* oh =
+        reinterpret_cast<unsigned short*>(leaves.out[lf]) + o0;
+    const bool of4 = !is_bf16 && (reinterpret_cast<uintptr_t>(of) & 15) == 0;
+    for (int j = 4 * tid; j < plen; j += 4 * kThreads) {
+      float v[4];
+      if (in_smem && j + 4 <= len) {
+        const float4 f = *reinterpret_cast<const float4*>(data + j);
+        v[0] = f.x;
+        v[1] = f.y;
+        v[2] = f.z;
+        v[3] = f.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = j + u < len ? at(j + u) : 0.0f;
+      }
+      float o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        o[u] = channel_value(v[u], thr, scale, L, inv_l, quant);
+      }
+      if (of4 && j + 4 <= plen) {
+        *reinterpret_cast<float4*>(of + j) = make_float4(o[0], o[1], o[2],
+                                                         o[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (j + u < plen) {
+            if (is_bf16) {
+              oh[j + u] = to_bf16(o[u]);
+            } else {
+              of[j + u] = o[u];
+            }
+          }
+        }
+      }
+    }
+    if (slices > 1) asm volatile("barrier.cluster.wait.aligned;\n" : :);
+    return;
+  }
   const float L = (float)((1 << (bits - 1)) - 1);
   int8_t* out = levels + row * (long long)block + s0;
   const bool out4 = (reinterpret_cast<uintptr_t>(out) & 3) == 0;
-  const int plen = s1 - s0;
   for (int j = 4 * tid; j < plen; j += 4 * kThreads) {
     float v[4];
     if (in_smem && j + 4 <= len) {
@@ -448,10 +543,42 @@ topk_quant_kernel(const __grid_constant__ Leaves leaves, int is_bf16,
 
 // the dynamic shared memory of a launch, set once per process
 cudaError_t configure_once() {
-  static cudaError_t status = cudaFuncSetAttribute(
-      topk_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMaxDynSmem);
+  static cudaError_t status = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        topk_quant_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kMaxDynSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        topk_quant_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kMaxDynSmem);
+  }();
   return status;
+}
+
+// One launch of either form: rows * slices CTAs of kThreads, clusters of
+// `slices`, smem_cap floats of dynamic shared memory a CTA.
+template <bool kChannel>
+cudaError_t launch(const Leaves& lv, int rows, int is_bf16, int block,
+                   int slices, int need, int bits, int iters, int smem_cap,
+                   int keep_all, void* levels, void* scales, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows * slices));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_cap * 4;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, topk_quant_kernel<kChannel>, lv, is_bf16, block, slices, need,
+      bits, iters, smem_cap, keep_all, reinterpret_cast<int8_t*>(levels),
+      reinterpret_cast<float*>(scales));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -485,24 +612,54 @@ int topk_quant_launch(int n_leaves, const long long* ptrs,
   }
   lv.count = n_leaves;
   const int part = slice_len(block, slices);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(rows * slices));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = part <= kMaxSlice ? (size_t)part * 4 : 0;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = slices;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, topk_quant_kernel, lv, is_bf16, block,
-                           slices, need, bits, iters,
-                           reinterpret_cast<int8_t*>(levels),
-                           reinterpret_cast<float*>(scales));
+  return (int)launch<false>(lv, rows, is_bf16, block, slices, need, bits,
+                            iters, part <= kMaxSlice ? part : 0, 0, levels,
+                            scales, stream);
+}
+
+// The channel form over n_leaves leaves (f32, or bf16 when is_bf16), one
+// launch on `stream`: leaf i has ns[i] values at ptrs[i], cut into rows of
+// lens[i] (ns[i] a multiple of it), its rows numbered from firsts[i] in
+// the launch (firsts[0] = 0, `rows` in all), and its values written to
+// outs[i], same dtype and layout.  Each row takes `slices` CTAs of one
+// cluster; a midpoint is kept as lo when at least needs[i] values of the
+// row are >= it (the least count c with c * f32(1/lens[i]) > p_s in f32).
+// bits is 2..16, or 32 for no quantization; keep_all (p_s >= 1) keeps
+// every value without a search.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+int topk_channel_launch(int n_leaves, const long long* ptrs,
+                        const long long* outs, const long long* ns,
+                        const long long* lens, const long long* needs,
+                        const long long* firsts, int rows, int is_bf16,
+                        int slices, int bits, int iters, int keep_all,
+                        void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || rows < 1 || slices < 1 ||
+      slices > kCluster || !((bits >= 2 && bits <= 16) || bits == 32) ||
+      iters < 0 || (long long)rows * slices > 0x7fffffffLL ||
+      firsts[0] != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = configure_once();
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  Leaves lv = {};
+  int cap = 0;
+  for (int i = 0; i < n_leaves; ++i) {
+    if (lens[i] < 1 || lens[i] > 0x7fffffffLL || ns[i] % lens[i] != 0 ||
+        needs[i] < 0 || needs[i] > lens[i] + 1) {
+      return (int)cudaErrorInvalidValue;
+    }
+    lv.x[i] = reinterpret_cast<const void*>(ptrs[i]);
+    lv.out[i] = reinterpret_cast<void*>(outs[i]);
+    lv.n[i] = ns[i];
+    lv.first[i] = firsts[i];
+    lv.len[i] = (int)lens[i];
+    lv.need[i] = (int)needs[i];
+    const int part = slice_len(lv.len[i], slices);
+    if (part <= kMaxSlice && part > cap) cap = part;
+  }
+  lv.count = n_leaves;
+  return (int)launch<true>(lv, rows, is_bf16, 0, slices, 0, bits, iters, cap,
+                           keep_all, nullptr, nullptr, stream);
 }
 
 }  // extern "C"

@@ -13,7 +13,11 @@ import torch
 
 from repro_torch.kernels.fused_pack import pack_leaves
 from repro_torch.kernels.ssd_scan import ssd_chunked_kernel
-from repro_torch.kernels.topk_quant import DEFAULT_BLOCK, topk_quant_rows
+from repro_torch.core.compression import FLOAT_BITS
+from repro_torch.kernels.topk_quant import (DEFAULT_BLOCK, check_channel,
+                                            threshold_channel_cuda,
+                                            threshold_channel_plain,
+                                            topk_quant_rows)
 from repro_torch.utils.tree import leaves as tree_leaves
 
 
@@ -44,6 +48,22 @@ def compress_roundtrip_leaves(leaves: Sequence[torch.Tensor],
     vals = (levels.to(torch.float32) * scales / L).view(-1)
     return [vals.narrow(0, r * block, x.numel()).view(x.shape).to(x.dtype)
             for r, x in zip(firsts, leaves)]
+
+
+def threshold_channel_leaves(leaves: Sequence[torch.Tensor], p_s: float,
+                             p_q: int, iters: int = 12
+                             ) -> List[torch.Tensor]:
+    """The cohort trainer's threshold channel: each leaf ``(C, ...)`` row
+    by row (one row per device) through ``sparsify_quantize_threshold``,
+    the JAX ``jax.vmap(ThresholdGraphCodec(p_s, p_q, iters).apply_tree)``.
+    On CUDA tensors kernel B's channel form, one launch per cluster size
+    (2 for the CNN); on CPU tensors its plain version.  At ``p_s >= 1``
+    and ``p_q >= 32`` the leaves come back as they are, with no launch."""
+    if p_s >= 1.0 and p_q >= FLOAT_BITS:
+        return list(leaves)
+    if check_channel(leaves, p_q, iters).type == "cuda":
+        return threshold_channel_cuda(leaves, p_s, p_q, iters)
+    return threshold_channel_plain(leaves, p_s, p_q, iters)
 
 
 def ssd(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,

@@ -22,14 +22,28 @@ kept values is exact in f32):
 :func:`topk_quant_leaves` and :func:`topk_quant` pick by device: the
 kernel for CUDA tensors (a build or launch failure raises), the plain
 version for CPU tensors.
+
+The channel form is the cohort trainer's threshold channel
+(``kernels.ops.threshold_channel_leaves``): each leaf ``(C, ...)`` holds C
+rows of its own length (one device's leaf, no pad), and the result is the
+dequantized value in the leaf's dtype and layout, bit-identical to the
+JAX package's ``sparsify_quantize_threshold`` under ``jax.jit`` and
+``jax.vmap`` (the kept fraction ``count * f32(1/len)``, the value
+``(level * scale) * f32(1/L)``), for ``bits`` 2..16 or 32.  Its plain
+version is :func:`threshold_channel_plain`; on the card the same kernel
+runs with one launch per cluster size (:func:`channel_plan`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.compression import (FLOAT_BITS, recip32,
+                                          sparsify_quantize_threshold_rows)
 
 DEFAULT_BLOCK = 16384
 
@@ -229,3 +243,131 @@ def dequant(levels: torch.Tensor, scales: torch.Tensor, bits: int, n: int,
     flat = (levels.to(torch.float32) * scales / L).reshape(-1)[:n]
     return flat.reshape(shape)
 
+
+
+# ----------------------------------------------------------------------
+# the channel form
+# ----------------------------------------------------------------------
+def threshold_channel_plain(leaves: Sequence[torch.Tensor], p_s: float,
+                            p_q: int, iters: int = 12) -> List[torch.Tensor]:
+    """Plain PyTorch version of the channel form: each leaf ``(C, ...)``
+    row by row through ``sparsify_quantize_threshold``, all C rows of a
+    leaf at once; each result has its leaf's shape and dtype."""
+    return [sparsify_quantize_threshold_rows(x.reshape(x.shape[0], -1), p_s,
+                                             p_q, iters).reshape(x.shape)
+            for x in leaves]
+
+
+@functools.lru_cache(maxsize=1024)
+def channel_need(row_len: int, p_s: float) -> int:
+    """The channel form's need: the least count c with ``f32(c) *
+    f32(1/row_len) > p_s`` in f32 (``row_len + 1`` when none), the rule
+    XLA compiles the mean to.  The product is monotone in c."""
+    r, ps = np.float32(recip32(row_len)), np.float32(p_s)
+
+    def keeps(c: int) -> bool:
+        return bool(np.float32(np.float32(c) * r) > ps)
+    c = min(max(int(np.floor(np.float64(ps) * row_len)), 0), row_len + 1)
+    while c > 0 and keeps(c - 1):
+        c -= 1
+    while c <= row_len and not keeps(c):
+        c += 1
+    return c
+
+
+def channel_plan(row_lens: Sequence[int], rows: Sequence[int]
+                 ) -> List[Tuple[int, List[int], List[int], int]]:
+    """Shape-only plan of the channel form's launches for leaves of
+    ``rows[i]`` rows of ``row_lens[i]`` values: leaves grouped by the CTAs
+    a row takes (``slices_for``; a cluster's size is fixed per launch), in
+    increasing order, ``MAX_LEAVES`` leaves a launch.  Per launch: (CTAs a
+    row, its leaves' indices, each one's first row in the launch, its row
+    count)."""
+    groups: dict = {}
+    for i, n in enumerate(row_lens):
+        groups.setdefault(slices_for(n), []).append(i)
+    plan = []
+    for slices in sorted(groups):
+        idx = groups[slices]
+        for a in range(0, len(idx), MAX_LEAVES):
+            part = idx[a:a + MAX_LEAVES]
+            firsts = [int(f) for f in np.cumsum(
+                [0] + [rows[i] for i in part[:-1]])]
+            plan.append((slices, part, firsts, sum(rows[i] for i in part)))
+    return plan
+
+
+def check_channel(leaves: Sequence[torch.Tensor], p_q: int,
+                  iters: int) -> torch.device:
+    """The channel form's argument checks (the same for both versions)."""
+    if not leaves:
+        raise ValueError("the threshold channel needs at least one leaf")
+    device, dtype = leaves[0].device, leaves[0].dtype
+    for x in leaves:
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"the threshold channel takes float32 or "
+                            f"bfloat16, got {x.dtype}")
+        if x.device != device or x.dtype != dtype:
+            raise ValueError("leaves of one channel call must share their "
+                             "device and dtype")
+        if x.dim() < 1 or x.shape[0] < 1:
+            raise ValueError("a channel leaf needs a leading row axis")
+    if not (2 <= p_q <= 16 or p_q >= FLOAT_BITS):
+        raise ValueError(f"p_q must be in [2, 16] or >= 32, got {p_q}")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the threshold channel runs on cuda or cpu, not "
+                         f"{device}")
+    return device
+
+
+@functools.lru_cache(maxsize=256)
+def _channel_launches(shapes: Tuple[Tuple[int, ...], ...], p_s: float
+                      ) -> List[Tuple[int, List[int], tuple, tuple, tuple,
+                                      tuple, int]]:
+    """The shape-only arguments of the channel form's launches for leaves
+    of ``shapes``: per launch (CTAs a row, its leaves' indices, their
+    element counts, row lengths, needs and first rows as ``ctypes``
+    arrays, its row count).  Empty leaves are left out."""
+    i64 = ctypes.c_longlong
+    live = [i for i, s in enumerate(shapes) if int(np.prod(s)) > 0]
+    ns = [int(np.prod(shapes[i])) for i in live]
+    lens = [n // shapes[i][0] for n, i in zip(ns, live)]
+    out = []
+    for slices, part, firsts, rows in channel_plan(
+            lens, [shapes[i][0] for i in live]):
+        k = len(part)
+        out.append((slices, [live[j] for j in part],
+                    (i64 * k)(*[ns[j] for j in part]),
+                    (i64 * k)(*[lens[j] for j in part]),
+                    (i64 * k)(*[0 if p_s >= 1.0 else
+                                channel_need(lens[j], p_s) for j in part]),
+                    (i64 * k)(*firsts), rows))
+    return out
+
+
+def threshold_channel_cuda(leaves: Sequence[torch.Tensor], p_s: float,
+                           p_q: int, iters: int) -> List[torch.Tensor]:
+    """The channel form through the kernel: one launch per group of
+    :func:`channel_plan`, results in fresh tensors of the leaves' shapes."""
+    from repro_torch.kernels.build import check, library
+    global LAUNCHES
+    flats = [x.contiguous() for x in leaves]
+    outs = [torch.empty_like(x) for x in flats]
+    bits = FLOAT_BITS if p_q >= FLOAT_BITS else int(p_q)
+    is_bf16 = int(flats[0].dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(flats[0].device).cuda_stream
+    lib = library()
+    i64 = ctypes.c_longlong
+    for slices, sel, ns, lens, needs, firsts, rows in _channel_launches(
+            tuple(tuple(x.shape) for x in flats), float(p_s)):
+        k = len(sel)
+        err = lib.topk_channel_launch(
+            k, (i64 * k)(*[flats[i].data_ptr() for i in sel]),
+            (i64 * k)(*[outs[i].data_ptr() for i in sel]), ns, lens, needs,
+            firsts, rows, is_bf16, slices, bits, int(iters),
+            int(p_s >= 1.0), stream)
+        check(err, "topk_quant channel kernel")
+        LAUNCHES += 1
+    return [o.view(x.shape) for o, x in zip(outs, leaves)]

@@ -11,9 +11,14 @@ in PyTorch's NCHW/OIHW.  XLA's ``SAME`` padding for an even 2x2 kernel pads
 0 before and 1 after each spatial axis; the 2x2 pools see even sizes (28,
 14) and need no padding.
 
-Two forms of the same model: the functional ``cnn_forward(params, images)``
-over a parameter dict, which the FL layer trains, and the :class:`CNN`
-module, which holds the same dict as ``nn.Parameter``s.
+Three forms of the same model: the functional ``cnn_forward(params,
+images)`` over a parameter dict, which the FL layer trains; the
+:class:`CNN` module, which holds the same dict as ``nn.Parameter``s; and
+the cohort form (``cnn_cohort_*``), in which every leaf carries a leading
+device axis C and a cohort of devices trains in one pass.  As in the JAX
+package, the cohort form writes each 2x2 convolution as 2x2 patches times
+the flattened HWIO weight (one batched matmul a layer), and its loss is
+the mean over all (C, B) examples.
 """
 from __future__ import annotations
 
@@ -90,6 +95,58 @@ def cnn_accuracy(params: Params, images: torch.Tensor,
                  labels: torch.Tensor) -> torch.Tensor:
     hits = (cnn_forward(params, images).argmax(-1) == labels).sum()
     return hits.to(torch.float32) / labels.numel()
+
+
+# ----------------------------------------------------------------------
+# Cohort form: per-device weights with a leading axis C
+# ----------------------------------------------------------------------
+def _patches2x2(x: torch.Tensor) -> torch.Tensor:
+    """(C, B, H, W, F) -> (C, B, H, W, 4F): the 2x2 patches under XLA's
+    SAME padding for an even kernel (pad low 0, high 1), in HWIO's (h, w)
+    order."""
+    xp = F.pad(x, (0, 0, 0, 1, 0, 1))
+    return torch.cat([xp[:, :, :-1, :-1], xp[:, :, :-1, 1:],
+                      xp[:, :, 1:, :-1], xp[:, :, 1:, 1:]], dim=-1)
+
+
+def _pool2(x: torch.Tensor) -> torch.Tensor:
+    c, b, h, w, f = x.shape
+    return x.reshape(c, b, h // 2, 2, w // 2, 2, f).amax(dim=(3, 5))
+
+
+def _conv2x2_cohort(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """x: (C, B, H, W, Fin); w: (C, 2, 2, Fin, Fout) -> (C, B, H, W, Fout)."""
+    c, nb, h, wd, _ = x.shape
+    p = _patches2x2(x).reshape(c, nb * h * wd, -1)
+    wk = w.reshape(c, 4 * w.shape[3], w.shape[4])
+    return (torch.bmm(p, wk).reshape(c, nb, h, wd, -1)
+            + b[:, None, None, None, :])
+
+
+def cnn_cohort_features(params: Params, images: torch.Tensor) -> torch.Tensor:
+    """Per-device features: leaves carry a leading cohort axis C; images
+    are (C, B, 28, 28, 1) -> (C, B, fc_width)."""
+    x = _pool2(F.relu(_conv2x2_cohort(images, params["conv1"],
+                                      params["b1"])))
+    x = _pool2(F.relu(_conv2x2_cohort(x, params["conv2"], params["b2"])))
+    x = x.reshape(x.shape[0], x.shape[1], -1)            # (H, W, C) order
+    return F.relu(torch.bmm(x, params["fc1"]) + params["bf1"][:, None, :])
+
+
+def cnn_cohort_forward(params: Params, images: torch.Tensor) -> torch.Tensor:
+    """(C, B, 28, 28, 1) -> logits (C, B, 10) with per-device weights."""
+    h = cnn_cohort_features(params, images)
+    return torch.bmm(h, params["fc2"]) + params["bf2"][:, None, :]
+
+
+def cnn_cohort_loss(params: Params, images: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over all (C, B) examples of the cohort, so each
+    device's gradient is 1/C of its own mean-loss gradient (as in the JAX
+    package)."""
+    logp = F.log_softmax(cnn_cohort_forward(params, images), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[..., None]).mean()
 
 
 class CNN(nn.Module):

@@ -35,6 +35,8 @@ from repro_torch.core.staleness import (aggregate_cache,
 from repro_torch.models import cnn as tcnn
 from repro_torch.utils.tree import from_numpy, to_numpy
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def weights():

@@ -23,6 +23,8 @@ from repro_torch.core import latency as tlat
 from repro_torch.kernels import bitpack as tbitpack
 from repro_torch.kernels import fused_pack as tfp
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CNN_SHAPES = {"b1": (32,), "b2": (32,), "bf1": (128,), "bf2": (10,),
               "conv1": (2, 2, 1, 32), "conv2": (2, 2, 32, 32),
               "fc1": (1568, 128), "fc2": (128, 10)}
@@ -147,13 +149,16 @@ def test_resolve_codec():
                       tcodecs.IdentityCodec)
     assert tcodecs.resolve_codec("dense", 0.25, 8) is \
         tcodecs.resolve_codec("dense", 0.25, 8)
-    assert sorted(tcodecs.CODECS) == ["dense", "identity", "packed"]
+    assert sorted(tcodecs.CODECS) == ["dense", "identity", "packed",
+                                      "threshold"]
     ident = tcodecs.IdentityCodec()
     tree = _torch(_tree(7))
     assert ident.roundtrip(tree)[1] == jcodecs.IdentityCodec().wire_bytes(
         _jax(_tree(7)))
-    with pytest.raises(NotImplementedError, match="cohort"):
-        tcodecs.resolve_codec("threshold", 0.25, 8)
+    thr = tcodecs.resolve_codec("threshold", 0.25, 8, iters=6)
+    assert thr == tcodecs.ThresholdGraphCodec(0.25, 8, 6)
+    assert thr.wire_bytes(tree) == jcodecs.resolve_codec(
+        "threshold", 0.25, 8, iters=6).wire_bytes(_jax(_tree(7)))
     with pytest.raises(ValueError):
         tcodecs.resolve_codec("nope", 0.25, 8)
     with pytest.raises(ValueError):

@@ -31,6 +31,7 @@ from repro_torch.fl.simulator import ScenarioConfig, SimConfig
 from repro_torch.utils.tree import to_numpy
 
 from conftest import TINY_RUN_KW, TINY_SETUP
+from torch_threads import one_torch_thread  # noqa: F401
 
 ACC_TOL = 0.025
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -137,13 +138,11 @@ def test_engine_resumes_and_stops_at_max_rounds(setups):
 
 def test_unported_settings_raise(setups):
     _, (data, parts, w0) = setups
-    for knobs in (dict(scheduler="batched"), dict(cohort_size=4),
-                  dict(handler_mode="wave")):
+    for knobs in (dict(scheduler="batched"), dict(handler_mode="wave")):
         with pytest.raises(NotImplementedError):
             make_sim(data, parts, w0, SimConfig(n_devices=8, **knobs),
                      device="cpu")
-    for knobs in (dict(method="fedavg"), dict(method="fedasync"),
-                  dict(server="sharded"), dict(codec_policy="tier_aware"),
+    for knobs in (dict(server="sharded"), dict(codec_policy="tier_aware"),
                   dict(task="transformer_lm")):
         with pytest.raises(NotImplementedError):
             tengine.FLEngine(data, parts, w0, SimConfig(n_devices=8, **knobs),

@@ -31,6 +31,8 @@ from repro_torch.kernels.ops import (compress_roundtrip,
 from repro_torch.kernels.topk_quant import (_pad_rows, dequant, topk_quant,
                                             topk_quant_plain)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CNN_SHAPES = {"b1": (32,), "b2": (32,), "bf1": (128,), "bf2": (10,),
               "conv1": (2, 2, 1, 32), "conv2": (2, 2, 32, 32),
               "fc1": (1568, 128), "fc2": (128, 10)}

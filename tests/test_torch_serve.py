@@ -21,6 +21,8 @@ from repro_torch.launch import serve
 from repro_torch.launch.serve import ContinuousBatcher, generate
 from repro_torch.utils.tree import from_numpy
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 P_LEN, GEN = 8, 6
 
 

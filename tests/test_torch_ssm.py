@@ -31,6 +31,8 @@ from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.utils.tree import from_numpy, to_numpy
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 MODEL_TOL = 2e-5
 
