@@ -49,7 +49,9 @@ Phases, in order; the script exits nonzero if any of them fails:
 11. Kernel B's channel form (``ops.threshold_channel_leaves``, the cohort
    trainer's threshold channel) against its plain version: bit-identical
    outputs over Set_s x Set_q at iters 12 and 6, the CNN's 8 leaves
-   stacked over C = 1, 2, 8 and 16 devices in f32, C = 8 in bf16, and a
+   stacked over C = 1, 2, 8, 16, 26, 32 and 64 devices in f32 (26 and 64
+   span the wave runs' version counts, 32 their padded cohort), C = 8 in
+   bf16, and a
    ragged list with a row of 140,001 tied magnitudes; 2 launches per
    application for the CNN, one per cluster size for the ragged list.
 12. The cohort main path at full width: TEASQ on the paper's CNN with 100
@@ -65,8 +67,33 @@ Phases, in order; the script exits nonzero if any of them fails:
    on the card at the full fleet for 3 rounds, then card against CPU at 8
    devices from the same weights.
 15. Kernel B's channel form timed at the up-channel shape of a full cohort
-   of 8 against its plain version and its byte bound; then one JSON line
-   of kernels, the card's ``nvidia-smi`` line, and the last line
+   of 8 against its plain version and its byte bound.
+16. The batched scheduler with serial handlers against the heap, on the
+   card: the paper's fleet (100 devices, 60,000/10,000 samples), TEASQ on
+   the cohort trainer at ``cohort_size=8``, 3 rounds each; the time, round
+   and byte columns equal, accuracy within ``BATCHED_ACC_TOL``.
+17. Wave mode at full width in the dispatch regime:
+   ``benchmarks/engine_scale.py::scale_config`` at its ``--scheduler
+   batched`` settings (100,000 devices on 100,000 samples, one sample each
+   so no local step, ``cohort_size=256``, 6 bisection steps, a 200 kHz
+   cell) with ``handler_mode="wave"``, run in steps of virtual time: 30 s
+   of wall with nothing instrumented, every launch counter set to 0 before
+   and read after (kernel B's channel form, ``_zero_step_round``, must
+   have run inside ``sim.run``): wall, tasks, ms per task, rounds,
+   flushes, B's launches.  Then 15 s with the flushes, the channel, the
+   aggregations and the evaluations timed on a host clock synchronized
+   around each (their shares of the wall), one step under the profiler
+   (the device's busy share), and the inputs of the run's largest channel
+   call and largest ``_zero_step_round`` through B's channel form against
+   its plain version: bit-identical.
+18. Wave mode with local steps: the same config at engine_scale's defaults
+   (1,000 devices on 12,000 samples, ``cohort_size=32``; 20 s counted and
+   10 s instrumented), the same numbers and the same check (the largest
+   channel call is the up-channel of a cohort padded to 32).
+19. Wave mode, the card against the CPU: 64 devices with a binding gate
+   (``c_fraction=0.1``), cohort 8; the time, round and byte columns and
+   ``stats`` equal, accuracy within ``ACC_TOL``.  Then one JSON line of
+   kernels, the card's ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Every card-against-CPU comparison asks for equal time, round and byte
@@ -104,6 +131,9 @@ ACC_TOL = 0.05                    # card vs CPU accuracy, absolute, per entry
 SSD_TOL = 1e-5
 SSD_TOL_FULL = 1e-4
 NEAR_TIE = 1e-3                   # top-2 logit margin a token flip may have
+# batched against heap scheduler on the card: the same ops in the same
+# order, up to the card's own run-to-run float differences
+BATCHED_ACC_TOL = 1e-4
 LOGIT_TOL = 1e-4                  # SSM prefill logits, card against CPU
 
 
@@ -188,7 +218,9 @@ class Smoke:
     rehearsal passes the CPU and a smaller fleet)."""
 
     def __init__(self, dev="cuda", n_devices=100, n_train=60000,
-                 n_test=10000, ssm_smoke=False, channel_cs=(1, 2, 8, 16)):
+                 n_test=10000, ssm_smoke=False,
+                 channel_cs=(1, 2, 8, 16, 26, 32, 64),
+                 wave_fleet=100_000, wave_walls=(45.0, 30.0)):
         import numpy as np
         import torch
         from repro_torch.configs.base import get_config, get_smoke_config
@@ -205,6 +237,10 @@ class Smoke:
                                 prompt_len=64 if ssm_smoke else 512)
         # phase 11: the cohort sizes of the channel form's sweep
         self.channel_cs = channel_cs
+        # phases 17 and 18: the dispatch regime's fleet (the one with local
+        # steps has a hundredth of it) and the seconds of wall of each
+        self.wave_fleet = wave_fleet
+        self.wave_walls = wave_walls
         self._full = None
 
     def sync(self):
@@ -1213,6 +1249,311 @@ class Smoke:
         print("   No single PyTorch call computes this function: "
               "library_ms is null.")
 
+    # -- phase 16 -----------------------------------------------------------
+    def batched_vs_heap(self):
+        from repro_torch.fl.protocols import make_sim
+        from repro_torch.fl.simulator import SimConfig
+        data, parts, w0 = self.full_setup()
+        hists, walls = {}, {}
+        for scheduler in ("heap", "batched"):
+            cfg = SimConfig(method="teasq", n_devices=len(parts),
+                            c_fraction=0.1, mu=0.01, alpha=0.6, p_s=0.25,
+                            p_q=8, seed=0, codec="packed", cohort_size=8,
+                            scheduler=scheduler, handler_mode="serial")
+            sim = make_sim(data, parts, w0, cfg, device=self.dev)
+            t0 = time.perf_counter()
+            hists[scheduler] = sim.run(time_budget=1e9, max_rounds=3)
+            self.sync()
+            walls[scheduler] = time.perf_counter() - t0
+        hh, hb = hists["heap"], hists["batched"]
+        self.expect(len(hh) == len(hb), f"{len(hh)} vs {len(hb)} entries")
+        for a, b in zip(hh, hb):
+            for c in ("time", "round", "bytes_up", "bytes_down",
+                      "max_model_bytes_up", "max_model_bytes_down"):
+                self.expect(getattr(a, c) == getattr(b, c),
+                            f"{c}: heap {getattr(a, c)} vs batched "
+                            f"{getattr(b, c)}")
+        d = max(abs(a.accuracy - b.accuracy) for a, b in zip(hh, hb))
+        self.expect(d <= BATCHED_ACC_TOL, f"accuracy differs by {d}")
+        self.expect(hb[-1].round == 3, f"{hb[-1].round} rounds")
+        print(f"   {len(parts)} devices, cohort 8, 3 rounds: heap "
+              f"{walls['heap']:.3f} s, batched {walls['batched']:.3f} s of "
+              f"wall; {len(hh)} entries, time, round and byte columns "
+              f"equal, max |accuracy diff| {d:.2e} (tolerance "
+              f"{BATCHED_ACC_TOL}) [{self.card()}]")
+
+    # -- phases 17 and 18 ---------------------------------------------------
+    def wave_run(self, key, n_dev, n_train, cohort, step, wall_cap):
+        """TEASQ in wave mode at ``benchmarks/engine_scale.py``'s
+        ``scale_config`` settings, run in steps of ``step`` virtual seconds
+        through three windows of wall: two thirds of ``wall_cap`` with
+        nothing instrumented (every launch counter set to 0 before and read
+        after: ms per task, rounds, B's launches); a third with the
+        flushes, the channel, the aggregations and the evaluations timed
+        on a host clock synchronized around each (the layers' shares; the
+        inputs of the largest channel call and of the largest
+        ``_zero_step_round`` kept); then one step under the profiler (the
+        device's busy share).  The kept inputs then go through kernel B's
+        channel form and its plain version: bit-identical, or the phase
+        fails."""
+        np, torch = self.np, self.torch
+        from repro_torch.core.latency import WirelessConfig
+        from repro_torch.fl import engine as E
+        from repro_torch.fl.protocols import make_setup, make_sim
+        from repro_torch.fl.simulator import SimConfig
+        t0 = time.perf_counter()
+        data, parts, w0 = make_setup(n_devices=n_dev, iid=True, seed=0,
+                                     n_train=n_train, n_test=1000,
+                                     device=self.dev)
+        cfg = SimConfig(method="teasq", n_devices=n_dev, c_fraction=0.1,
+                        gamma=10.0 / n_dev, epochs=1, batch_size=8,
+                        p_s=0.25, p_q=8, seed=0,
+                        wireless=WirelessConfig(bandwidth_hz=2e5),
+                        cohort_size=cohort, cohort_channel_iters=6,
+                        scheduler="batched", handler_mode="wave")
+        sim = make_sim(data, parts, w0, cfg, device=self.dev)
+        print(f"   setup: {n_dev} devices, {n_train} samples "
+              f"({n_train // n_dev} each), cohort {cohort} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        budget = 0.0
+
+        def window(cap):
+            """Steps of ``step`` virtual s until ``cap`` s of wall: the
+            wall, the tasks completed and the last history."""
+            nonlocal budget
+            done0 = sim.stats.completions
+            self.sync()
+            t = time.perf_counter()
+            while time.perf_counter() - t < cap:
+                budget += step
+                hist = sim.run(time_budget=budget, eval_every=10 ** 9)
+                self.sync()
+            return (time.perf_counter() - t, sim.stats.completions - done0,
+                    hist)
+
+        # 1. counted, nothing instrumented
+        self.zero_counts()
+        wall, tasks, hist = window(wall_cap * 2 / 3)
+        launches = self.read_counts()
+        st, last = sim.stats, hist[-1]
+        rounds, flushes, counted_budget = last.round, st.flushes, budget
+        b = launches["topk_quant"]
+        print(f"   counted window, nothing instrumented: virtual budget "
+              f"{budget:.2f} s (steps of {step} s until "
+              f"{wall_cap * 2 / 3:.1f} s of wall): wall {wall:.3f} s, tasks "
+              f"{tasks}, {wall * 1e3 / max(tasks, 1):.4f} ms per task, "
+              f"rounds {rounds}, dispatches {st.dispatches}, flushes "
+              f"{flushes} ({st.flushed_tasks} tasks) [{self.card()}]")
+        print(f"   launches inside sim.run: {launches}; kernel B "
+              f"{b / max(flushes, 1):.2f} per flush")
+
+        # 2. instrumented: the layers' shares, and the channel's inputs
+        spent = {"flush": 0.0, "channel": 0.0, "aggregate": 0.0, "eval": 0.0}
+        kept = {}
+        flush, channel, zero = sim.trainer.flush, E._channel, \
+            E._zero_step_round
+        srv = sim.server
+
+        def timed(fn, what):
+            def call(*a, **k):
+                self.sync()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                self.sync()
+                spent[what] += time.perf_counter() - t
+                return out
+            return call
+
+        def keep(fn, what):
+            # the inputs of the call with the most rows, cloned before the
+            # call (outside the channel's timing)
+            def call(tree, *a, **k):
+                rows = next(iter(tree.values())).shape[0]
+                if rows > kept.get(what, (0,))[0]:
+                    kept[what] = (rows, {n: v.clone() for n, v in
+                                         tree.items()}, a, k)
+                return fn(tree, *a, **k)
+            return call
+
+        # a wave aggregates in the stacked form, a lone arrival in the
+        # sequential one
+        sim.trainer.flush = timed(flush, "flush")
+        srv._aggregate = timed(srv._aggregate, "aggregate")
+        srv._aggregate_stacked = timed(srv._aggregate_stacked, "aggregate")
+        sim.evaluate = timed(sim.evaluate, "eval")   # the tail log of a run
+        E._channel = keep(timed(channel, "channel"), "channel")
+        E._zero_step_round = keep(zero, "zero_step")
+        try:
+            wall_i, tasks_i, _ = window(wall_cap / 3)
+        finally:
+            # back to the untimed functions (instance attributes shadowed
+            # the class's)
+            E._channel, E._zero_step_round = channel, zero
+            del sim.trainer.flush, sim.evaluate
+            del srv._aggregate, srv._aggregate_stacked
+        rest = 1 - (spent["flush"] + spent["aggregate"]
+                    + spent["eval"]) / wall_i
+        print(f"   instrumented window (host clock synchronized around each "
+              f"flush, channel call, aggregation and evaluation): wall "
+              f"{wall_i:.3f} s, tasks {tasks_i}, "
+              f"{wall_i * 1e3 / max(tasks_i, 1):.4f} ms per task; flushes "
+              f"{spent['flush']:.3f} s ({100 * spent['flush'] / wall_i:.1f}%"
+              f" of the wall), of which the channel {spent['channel']:.3f} s"
+              f" ({100 * spent['channel'] / wall_i:.1f}%); the Eqs. 6-10 "
+              f"aggregations {spent['aggregate']:.3f} s "
+              f"({100 * spent['aggregate'] / wall_i:.1f}%); the evaluations "
+              f"{spent['eval']:.3f} s; the rest, the event loop on the host, "
+              f"{100 * rest:.1f}% [{self.card()}]")
+        print(f"   accuracy {last.accuracy:.4f} after the counted window, "
+              f"metered bytes up {last.bytes_up}, down {last.bytes_down}")
+
+        # 3. one more step, profiled
+        busy = self.device_busy(lambda: sim.run(time_budget=budget + step,
+                                                eval_every=10 ** 9))
+        if busy is not None:
+            print(f"   one more step of {step} virtual s under the profiler: "
+                  f"the device busy {100 * busy:.1f}% of its wall (kernel "
+                  f"time over wall; the profiler slows the host, so the "
+                  f"busy share is a lower bound)")
+
+        # the kept inputs against the plain version, exactly
+        rows = self.wave_channel_check(kept)
+        print(f"   kernel B's channel form on the run's own inputs "
+              f"({', '.join(f'{w}: {r} rows' for w, r in rows.items())}): "
+              f"bit-identical to the plain version (tolerance: exact)")
+        self.expect(b > 0, "kernel B did not run inside sim.run")
+        self.expect(rounds >= 1 and tasks > 0, f"{rounds} rounds, {tasks} "
+                    f"tasks")
+        self.expect(math.isfinite(last.accuracy)
+                    and 0 <= last.accuracy <= 1, "accuracy not finite")
+        self.expect(all(bool(torch.isfinite(v).all())
+                        for v in sim.server.w.values()),
+                    "weights not finite")
+        self.kernels["topk_quant"].update({
+            f"{key}_launches_in_sim_run": b,
+            f"{key}_virtual_budget_s": counted_budget, f"{key}_wall_s": wall,
+            f"{key}_tasks": tasks,
+            f"{key}_ms_per_task": wall * 1e3 / max(tasks, 1),
+            f"{key}_rounds": rounds, f"{key}_flushes": flushes,
+            f"{key}_instrumented_ms_per_task": wall_i * 1e3 / max(tasks_i, 1),
+            f"{key}_flush_share": spent["flush"] / wall_i,
+            f"{key}_channel_share": spent["channel"] / wall_i,
+            f"{key}_aggregate_share": spent["aggregate"] / wall_i,
+            f"{key}_event_loop_share": rest,
+            f"{key}_device_busy_share_profiled": busy,
+            **{f"{key}_{w}_checked_rows": r for w, r in rows.items()}})
+        return flushes
+
+    def wave_channel_check(self, kept):
+        """The inputs a wave run gave the channel (``kept["channel"]``)
+        and ``_zero_step_round`` (``kept["zero_step"]``, where the run took
+        it) through kernel B's channel form, against its plain version
+        (once, and twice for the zero-step round): bit-identical.  Returns
+        the rows checked of each."""
+        torch = self.torch
+        from repro_torch.fl import engine as E
+        from repro_torch.kernels import topk_quant as B
+        self.expect("channel" in kept, "the run made no channel call")
+        out = {}
+        for what, (rows, tree, a, k) in kept.items():
+            names = sorted(tree)
+            leaves = [tree[n] for n in names]
+            p_s, p_q, iters = (list(a) + [k[n] for n in ("p_s", "p_q",
+                                                        "iters") if n in k])
+            want = B.threshold_channel_plain(leaves, p_s, p_q, iters)
+            if what == "zero_step":
+                want = B.threshold_channel_plain(want, p_s, p_q, iters)
+                got = E._zero_step_round(tree, p_s=p_s, p_q=p_q,
+                                         iters=iters)
+            else:
+                got = E._channel(tree, p_s, p_q, iters)
+            for n, w in zip(names, want):
+                g = got[n]
+                view = torch.int16 if g.dtype == torch.bfloat16 else \
+                    torch.int32
+                self.expect(g.shape == w.shape and g.dtype == w.dtype
+                            and torch.equal(g.view(view), w.view(view)),
+                            f"{what} leaf {n} at {rows} rows differs from "
+                            f"the plain version")
+            out[what] = rows
+        return out
+
+    def device_busy(self, fn):
+        """The share of ``fn``'s wall in which the card runs a kernel
+        (torch.profiler's device time over the wall of the profiled call);
+        None off the card."""
+        torch = self.torch
+        if self.dev.type != "cuda":
+            return None
+        from torch.profiler import ProfilerActivity, profile
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            wall = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        return busy / 1e6 / wall
+
+    def wave_dispatch(self):
+        n_dev = self.wave_fleet
+        flushes = self.wave_run("wave_dispatch", n_dev, n_dev, 256, 0.25,
+                                self.wave_walls[0])
+        self.expect(flushes > 0, "no cohort flush")
+
+    def wave_steps(self):
+        n_dev = self.wave_fleet // 100
+        self.wave_run("wave_steps", n_dev, 12 * n_dev, 32, 1.0,
+                      self.wave_walls[1])
+
+    # -- phase 19 -----------------------------------------------------------
+    def wave_card_vs_cpu(self):
+        from repro_torch.fl.protocols import make_setup, make_sim
+        from repro_torch.fl.simulator import SimConfig
+        from repro_torch.utils.tree import to_numpy
+        n = 64
+        data, parts, w0 = make_setup(n_devices=n, iid=True, seed=0,
+                                     n_train=16 * n, n_test=320,
+                                     device="cpu")
+        w_np = to_numpy(w0)
+        runs = {}
+        for dev in (self.dev.type, "cpu"):
+            _, _, w = make_setup(n_devices=n, iid=True, seed=0,
+                                 n_train=16 * n, n_test=320, device=dev,
+                                 init_params=w_np)
+            cfg = SimConfig(method="teasq", n_devices=n, c_fraction=0.1,
+                            epochs=1, batch_size=8, p_s=0.25, p_q=8, seed=0,
+                            codec="packed", cohort_size=8,
+                            cohort_channel_iters=6, scheduler="batched",
+                            handler_mode="wave")
+            sim = make_sim(data, parts, w, cfg, device=dev)
+            runs[dev] = (sim, sim.run(time_budget=4.0, eval_every=1))
+        (sc, hc), (sp, hp) = runs[self.dev.type], runs["cpu"]
+        self.expect(len(hc) == len(hp), f"{len(hc)} vs {len(hp)} entries")
+        for a, b in zip(hc, hp):
+            for c in ("time", "round", "bytes_up", "bytes_down",
+                      "max_model_bytes_up", "max_model_bytes_down"):
+                self.expect(getattr(a, c) == getattr(b, c),
+                            f"{c}: {getattr(a, c)} vs {getattr(b, c)}")
+        for f in ("dispatches", "completions", "dropouts",
+                  "transient_failures", "redispatched", "flushes",
+                  "flushed_tasks"):
+            self.expect(getattr(sc.stats, f) == getattr(sp.stats, f),
+                        f"stats.{f}: {getattr(sc.stats, f)} vs "
+                        f"{getattr(sp.stats, f)}")
+        self.expect(bool((sc.stats.completed_per_device
+                          == sp.stats.completed_per_device).all()),
+                    "completed_per_device differs")
+        d = max(abs(a.accuracy - b.accuracy) for a, b in zip(hc, hp))
+        self.expect(d <= ACC_TOL, f"accuracy differs by {d} > {ACC_TOL}")
+        print(f"   {n} devices, gate of {sc.server.cfg.max_parallel}, "
+              f"cohort 8: {len(hc)} entries, {hc[-1].round} rounds, "
+              f"{sc.stats.flushes} flushes; time, round and byte columns "
+              f"and stats equal; max |accuracy diff| {d:.4f} (tolerance "
+              f"{ACC_TOL})")
+
 
 def _leaves(tree):
     for v in tree.values():
@@ -1320,6 +1661,12 @@ def main() -> int:
             s.cohort_card_vs_cpu)
     s.phase("14. fedasync, port, asofed, fedavg and moon", s.protocols)
     s.phase("15. kernel B's channel form, timed", s.timings_channel)
+    s.phase("16. batched scheduler, serial handlers, against the heap",
+            s.batched_vs_heap)
+    s.phase("17. wave mode at full width, dispatch regime, 100,000 devices",
+            s.wave_dispatch)
+    s.phase("18. wave mode with local steps, 1,000 devices", s.wave_steps)
+    s.phase("19. the card against the CPU, wave mode", s.wave_card_vs_cpu)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failures:
         die("failed phases: " + "; ".join(s.failures))

@@ -16,7 +16,7 @@ which is what we implement.)
 Beyond the paper: :func:`greedy_search_per_tier` runs one budgeted search
 per bandwidth tier (monotone: slower links end at least as compressed),
 feeding the ``tier_aware`` per-device codec policy in
-``repro_torch.fl.policies`` (not ported yet: ``make_policy`` raises).
+``repro_torch.fl.policies`` (``SimConfig.tier_points``).
 """
 from __future__ import annotations
 

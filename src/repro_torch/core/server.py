@@ -5,7 +5,7 @@ Receiver/Updater: caches K = ceil(N*gamma) updates, then performs the
 staleness-weighted aggregation of Eqs. 6-10 on the parameters' device.
 
 ``SERVERS`` registers the server backends; the port has ``"single"``.
-The sharded backend arrives with ROADMAP.md Queue A item 8 and raises
+The sharded backend arrives with ROADMAP.md Queue A item 5 and raises
 until then.
 """
 from __future__ import annotations
@@ -15,7 +15,8 @@ import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.core.staleness import aggregate_cache
+from repro_torch.core.staleness import (aggregate_cache,
+                                        aggregate_cache_stacked)
 from repro_torch.utils.tree import Params
 
 
@@ -59,6 +60,11 @@ class TeasqServer:
         return aggregate_cache(self.w, self.cache, self.t,
                                self.cfg.alpha, self.cfg.a)
 
+    def _aggregate_stacked(self) -> Params:
+        """Eqs. 6-10 in the stacked form (wave mode)."""
+        return aggregate_cache_stacked(self.w, self.cache, self.t,
+                                       self.cfg.alpha, self.cfg.a)
+
     def receive(self, w_local: Params, h: int, n_samples: int) -> bool:
         """Push an update; aggregate when the cache reaches K.
         Returns True if an aggregation round completed."""
@@ -71,11 +77,30 @@ class TeasqServer:
         self.t += 1
         return True
 
+    def receive_many(self, entries: List[Tuple[Params, int, int]]
+                     ) -> List[bool]:
+        """Wave-mode Receiver (Alg. 2 over an arrival group): the
+        ``(w_local, h_c, n_c)`` entries in event order, aggregating at every
+        cache fill in the stacked form.  The same cache and round
+        semantics as one :meth:`receive` per entry; returns their flags."""
+        done = []
+        for w_local, h, n_samples in entries:
+            self.active = max(0, self.active - 1)
+            self.cache.append((w_local, h, n_samples))
+            if len(self.cache) < self.cfg.cache_size:
+                done.append(False)
+                continue
+            self.w = self._aggregate_stacked()
+            self.cache.clear()
+            self.t += 1
+            done.append(True)
+        return done
+
 
 SERVERS: Dict[str, type] = {"single": TeasqServer}
 
 # where the not-yet-ported backends arrive
-_LATER = {"sharded": "ROADMAP.md Queue A item 8 (sharding)"}
+_LATER = {"sharded": "ROADMAP.md Queue A item 5 (sharding)"}
 
 
 def make_server(name: str, w_init: Params, cfg: ServerConfig, *,

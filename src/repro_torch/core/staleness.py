@@ -4,6 +4,9 @@ Everything is f32 on the parameters' device.  ``aggregate_cache`` keeps
 the JAX package's tuple form: the weighted sum runs over the cached
 updates in cache order, one multiply-add per update, which is the
 reduction order of the JAX kernel (``sum(w * l for ...)``).
+``aggregate_cache_stacked`` is the wave mode's form: the K cached leaves
+stacked on a leading axis (on the device) and reduced with one
+``tensordot`` per leaf.
 """
 from __future__ import annotations
 
@@ -28,21 +31,43 @@ def stacked_staleness_weights(staleness, n_samples,
     return wts / torch.sum(wts)
 
 
-def aggregate_cache(w_global: Params, cache: List[Tuple[Params, int, int]],
-                    t: int, alpha: float, a: float = 0.5) -> Params:
-    """Full server aggregation step over cached (update, h_c, n_c) entries:
-    u = sum_c wts_c w_c (Eq. 7), alpha^t = alpha S(mean staleness)
-    (Eqs. 8-9), w^{t+1} = alpha^t u + (1 - alpha^t) w^t (Eq. 10)."""
+def _cache_weights(w_global: Params, cache: List[Tuple[Params, int, int]],
+                   t: int, alpha: float, a: float):
+    """The Eqs. 6-7 weights of the cached entries and alpha^t (Eqs. 8-9),
+    on the parameters' device."""
     device = next(iter(w_global.values())).device
     staleness = torch.tensor([t - c[1] for c in cache], dtype=torch.float32,
                              device=device)
     n_samples = torch.tensor([c[2] for c in cache], dtype=torch.float32,
                              device=device)
     wts = stacked_staleness_weights(staleness, n_samples, a)
-    a_t = alpha * (torch.mean(staleness) + 1.0) ** (-a)
+    return wts, alpha * (torch.mean(staleness) + 1.0) ** (-a)
+
+
+def aggregate_cache(w_global: Params, cache: List[Tuple[Params, int, int]],
+                    t: int, alpha: float, a: float = 0.5) -> Params:
+    """Full server aggregation step over cached (update, h_c, n_c) entries:
+    u = sum_c wts_c w_c (Eq. 7), alpha^t = alpha S(mean staleness)
+    (Eqs. 8-9), w^{t+1} = alpha^t u + (1 - alpha^t) w^t (Eq. 10)."""
+    wts, a_t = _cache_weights(w_global, cache, t, alpha, a)
     out = {}
     for k in sorted(w_global):
         u = sum(wts[i] * c[0][k] for i, c in enumerate(cache))
         out[k] = a_t * u + (1.0 - a_t) * w_global[k]
     return out
 
+
+def aggregate_cache_stacked(w_global: Params,
+                            cache: List[Tuple[Params, int, int]], t: int,
+                            alpha: float, a: float = 0.5) -> Params:
+    """Eqs. 6-10 with the K cached leaves stacked on a leading axis on the
+    parameters' device (no host round trip) and reduced by one f32
+    ``tensordot`` per leaf, then the Eq. 10 merge.  It is
+    ``aggregate_cache`` up to the order of the K-term sums."""
+    wts, a_t = _cache_weights(w_global, cache, t, alpha, a)
+    out = {}
+    for k in sorted(w_global):
+        stacked = torch.stack([c[0][k] for c in cache]).float()
+        u = torch.tensordot(wts, stacked, dims=1)
+        out[k] = a_t * u + (1.0 - a_t) * w_global[k]
+    return out

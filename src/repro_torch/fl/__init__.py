@@ -1,9 +1,11 @@
 from repro_torch.core.codecs import (CODECS, Codec, DenseRefCodec,
                                      IdentityCodec, PackedBitstreamCodec,
-                                     resolve_codec)
-from repro_torch.fl.engine import (ChannelMeter, DeviceRegistry, FLEngine,
+                                     ThresholdGraphCodec, resolve_codec)
+from repro_torch.fl.engine import (SCHEDULERS, BatchedEngine, ChannelMeter,
+                                   CohortTrainer, DeviceRegistry, FLEngine,
                                    SerialTrainer)
-from repro_torch.fl.policies import POLICIES, CodecPolicy, make_policy
+from repro_torch.fl.policies import (POLICIES, CodecPolicy, DispatchContext,
+                                     make_policy)
 from repro_torch.fl.protocols import (METHODS, STRATEGIES, ProtocolStrategy,
                                       best_acc_within, make_setup, make_sim,
                                       make_strategy, profile_compression,
@@ -14,9 +16,10 @@ from repro_torch.fl.tasks import TASKS, FLTask, get_task, register_task
 
 __all__ = [
     "CODECS", "Codec", "DenseRefCodec", "IdentityCodec",
-    "PackedBitstreamCodec", "resolve_codec",
-    "ChannelMeter", "DeviceRegistry", "FLEngine", "SerialTrainer",
-    "POLICIES", "CodecPolicy", "make_policy",
+    "PackedBitstreamCodec", "ThresholdGraphCodec", "resolve_codec",
+    "SCHEDULERS", "BatchedEngine", "ChannelMeter", "CohortTrainer",
+    "DeviceRegistry", "FLEngine", "SerialTrainer",
+    "POLICIES", "CodecPolicy", "DispatchContext", "make_policy",
     "METHODS", "STRATEGIES", "ProtocolStrategy", "best_acc_within",
     "make_setup", "make_sim", "make_strategy", "profile_compression",
     "run_method", "time_to_acc",

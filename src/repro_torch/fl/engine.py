@@ -32,9 +32,23 @@ the ``LogEntry`` history equal the JAX engine's for the same inputs; only
 accuracy moves with float arithmetic.
 
 The model, the data and the aggregation live on the engine's device: the
-card unless the caller names another.  The port runs the heap scheduler,
-``handler_mode="serial"`` and the single server; the batched scheduler and
-wave handlers arrive with ROADMAP.md Queue A item 4 and raise until then.
+card unless the caller names another.  The event loop itself is host
+numpy.
+
+Two schedulers drive the Alg. 1-2 event loop (``SimConfig.scheduler``,
+registry :data:`SCHEDULERS`):
+
+* ``"heap"`` -- :class:`FLEngine`, one ``heappop`` at a time.
+* ``"batched"`` -- :class:`BatchedEngine`: per-device next-event state in
+  resident arrays (:class:`EventTable`), the next K events selected in one
+  numpy call in the heap's exact ``(time, seq)`` order, so with
+  ``handler_mode="serial"`` its histories equal the heap's bit for bit.
+  ``handler_mode="wave"`` processes each same-kind run of a batch as one
+  vectorized wave (grant waves, arrival waves through the stacked
+  Eqs. 6-10 kernel), under the JAX package's relaxed-parity contract (see
+  the class docstring); in the zero-step regime a cohort flush is kernel
+  B's channel form applied twice to each model version
+  (:func:`_zero_step_round`).
 """
 from __future__ import annotations
 
@@ -47,8 +61,9 @@ import torch
 
 from repro_torch.core.client import local_update
 from repro_torch.core.codecs import IdentityCodec
-from repro_torch.core.latency import (comm_latency, device_rates,
-                                      sample_compute_latency)
+from repro_torch.core.latency import (comm_latency, comm_latency_batch,
+                                      device_rates, sample_compute_latency,
+                                      sample_compute_latency_batch)
 from repro_torch.core.server import ServerConfig, make_server
 from repro_torch.fl.simulator import (LogEntry, ScenarioConfig, SimConfig,
                                       tier_assignment)
@@ -73,6 +88,14 @@ class DeviceRegistry:
         self.phi_k = np.full(n, cfg.compute.phi)
         self.alive = np.ones(n, bool)
         self.tier = np.zeros(n, np.int64)
+        self.events: Optional[EventTable] = None   # batched scheduler only
+
+    def event_table(self) -> "EventTable":
+        """The resident per-device next-event arrays (allocated on first
+        use: only the batched scheduler needs them)."""
+        if self.events is None:
+            self.events = EventTable(len(self.alive))
+        return self.events
 
     def apply_tiers(self, tiers) -> None:
         """Scale latency per tier under the shared contiguous assignment."""
@@ -93,6 +116,145 @@ class DeviceRegistry:
                                     tau_b=n_batches * cfg.epochs
                                     * 0.002 * cfg.batch_size, rng=rng)
         return dl, cp, ul
+
+    def round_latency_batch(self, ks: np.ndarray, bits_down, bits_up,
+                            n_batches: np.ndarray,
+                            rng: np.random.RandomState
+                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``round_latency`` over a grant wave: the same float64
+        arithmetic, one ``rng.exponential(size=G)`` draw.  Wave callers
+        pass ``ks`` in ascending device-id order, so draw i belongs to the
+        i-th lowest device id of the wave."""
+        cfg = self.cfg
+        dl = comm_latency_batch(bits_down, self.down_rates[ks])
+        ul = comm_latency_batch(bits_up, self.up_rates[ks])
+        tau_b = (np.asarray(n_batches, np.float64) * cfg.epochs
+                 * 0.002 * cfg.batch_size)
+        cp = sample_compute_latency_batch(self.a_k[ks], self.phi_k[ks],
+                                          tau_b, rng)
+        return dl, cp, ul
+
+
+# Event kinds, shared by both schedulers: the heap path stores the name in
+# its event tuples, the batched path the id in its resident arrays.
+KIND_NAMES = ("request", "arrival", "failure")
+KIND_IDS = {name: i for i, name in enumerate(KIND_NAMES)}
+
+
+class EventTable:
+    """Resident next-event state of the batched scheduler, one slot per
+    device.  Every device has at most one outstanding event (its request,
+    its in-flight arrival, or a failure/retry), and events are never
+    cancelled, so the device id is the slot key and the whole queue is a
+    set of aligned per-device arrays (``time`` is +inf while a slot is
+    empty).  ``select_batch`` picks the next <= ``k_max`` events in exact
+    ``(time, seq)`` heap order, ties at the k-th time all included, so a
+    batch boundary never splits a group of same-time events."""
+
+    def __init__(self, n: int):
+        self.time = np.full(n, np.inf)
+        self.seq = np.zeros(n, np.int64)
+        self.kind = np.zeros(n, np.int8)
+        self.h = np.zeros(n, np.int64)
+        # the FL job of an event: 0 for a single-task engine
+        self.task = np.zeros(n, np.int32)
+        self.payload: List[Any] = [None] * n
+
+    def put(self, k: int, t: float, seq: int, kind: str, payload: Any,
+            h: int, task: int = 0) -> None:
+        assert self.time[k] == np.inf, \
+            f"device {k} already has a scheduled event"
+        self.time[k] = t
+        self.seq[k] = seq
+        self.kind[k] = KIND_IDS[kind]
+        self.h[k] = h
+        self.task[k] = task
+        self.payload[k] = payload
+
+    def clear(self, k: int) -> None:
+        self.time[k] = np.inf
+        self.payload[k] = None
+
+    def put_wave(self, ks: np.ndarray, ts: np.ndarray, seqs: np.ndarray,
+                 kind: str, payloads, h, task: int = 0) -> None:
+        """``put`` for a wave of same-kind events, one scatter per array;
+        ``h`` and ``task`` are shared by the wave."""
+        assert np.all(self.time[ks] == np.inf), \
+            "a wave member already has a scheduled event"
+        self.time[ks] = ts
+        self.seq[ks] = seqs
+        self.kind[ks] = KIND_IDS[kind]
+        self.h[ks] = h
+        self.task[ks] = task
+        if payloads is None:
+            return
+        pl = self.payload
+        for k, p in zip(ks.tolist(), payloads):
+            pl[k] = p
+
+    def clear_wave(self, ks: np.ndarray) -> None:
+        self.time[ks] = np.inf
+        pl = self.payload
+        for k in ks.tolist():
+            pl[k] = None
+
+    def select_batch(self, k_max: int) -> np.ndarray:
+        """Device ids of the next <= ``k_max`` scheduled events (plus any
+        events tied with the k-th time), in ``(time, seq)`` order."""
+        times = self.time
+        finite = times < np.inf
+        n_live = int(finite.sum())
+        if n_live == 0:
+            return np.empty(0, np.int64)
+        if n_live > k_max:
+            kth = np.partition(times, k_max - 1)[k_max - 1]
+            cand = np.flatnonzero(times <= kth)
+        else:
+            cand = np.flatnonzero(finite)
+        return cand[np.lexsort((self.seq[cand], times[cand]))]
+
+
+class _FifoWaiting:
+    """FIFO waiting queue with O(1) pops, call-compatible with the heap
+    path's plain list (``append`` / ``pop(0)`` / ``len``): a pop advances a
+    head cursor instead of shifting the buffer, which matters when most of
+    a large fleet parks behind the admission gate."""
+
+    __slots__ = ("_items", "_head")
+
+    def __init__(self):
+        self._items: List[int] = []
+        self._head = 0
+
+    def __len__(self) -> int:
+        return len(self._items) - self._head
+
+    def append(self, k: int) -> None:
+        self._items.append(k)
+
+    def pop(self, i: int = 0) -> int:
+        assert i == 0, "the waiting queue is FIFO-only"
+        k = self._items[self._head]
+        self._head += 1
+        self._maybe_compact()
+        return k
+
+    def extend(self, ks) -> None:
+        """Park a whole wave behind the admission gate in one call."""
+        self._items.extend(ks)
+
+    def pop_many(self, g: int) -> List[int]:
+        """Pop up to ``g`` waiters as one slice (the wave-grant drain)."""
+        h = self._head
+        out = self._items[h:h + g]
+        self._head = h + len(out)
+        self._maybe_compact()
+        return out
+
+    def _maybe_compact(self) -> None:
+        if self._head > 1024 and self._head * 2 >= len(self._items):
+            del self._items[:self._head]
+            self._head = 0
 
 
 class ChannelMeter:
@@ -130,6 +292,30 @@ class ChannelMeter:
         nbytes = codec.wire_bytes(tree)
         self.up(nbytes, tier)
         return nbytes
+
+    # -- wave accounting: one call per grant wave.  Integer-exact: the
+    # bincount sums int64 byte counts as float64 (exact below 2^53) and
+    # converts back per tier, so the totals equal G scalar calls.
+    def _wave(self, nbytes: np.ndarray, tiers: np.ndarray,
+              tier_tot: Dict[int, int]) -> Tuple[int, int]:
+        sums = np.bincount(tiers, weights=nbytes)
+        for t in np.flatnonzero(sums).tolist():
+            tier_tot[t] = tier_tot.get(t, 0) + int(sums[t])
+        return int(nbytes.sum()), int(nbytes.max())
+
+    def down_wave(self, nbytes: np.ndarray, tiers: np.ndarray) -> None:
+        if not len(nbytes):
+            return
+        tot, mx = self._wave(nbytes, tiers, self.tier_down)
+        self.bytes_down += tot
+        self.max_down = max(self.max_down, mx)
+
+    def up_wave(self, nbytes: np.ndarray, tiers: np.ndarray) -> None:
+        if not len(nbytes):
+            return
+        tot, mx = self._wave(nbytes, tiers, self.tier_up)
+        self.bytes_up += tot
+        self.max_up = max(self.max_up, mx)
 
 
 @dataclasses.dataclass
@@ -332,11 +518,18 @@ class CohortTrainer:
         t_max = max(t.bidx.shape[0] for t in group)
         t_max = self._pad_pow2(t_max) if t_max else 0
         if t_max == 0 and cfg.handler_mode == "wave":
+            # no local step: the result is a function of the version alone
+            # (gated to wave mode, as in the JAX package); one set of views
+            # per version, shared by its tasks
             w_up_v = _zero_step_round(w_versions, p_s=p_s, p_q=p_q,
                                       iters=self.channel_iters)
+            per_version: Dict[int, Params] = {}
             for t in group:
-                t.result = ({k: a[t.version] for k, a in w_up_v.items()},
-                            t.n_k)
+                w = per_version.get(t.version)
+                if w is None:
+                    w = per_version[t.version] = {
+                        k: a[t.version] for k, a in w_up_v.items()}
+                t.result = (w, t.n_k)
             return
         bs = cfg.batch_size
         bidx = np.zeros((c_pad, t_max, bs), np.int64)
@@ -372,19 +565,20 @@ class FLEngine:
     strategies.  With the same inputs and knobs it consumes the seeded RNG
     in the JAX ``FLEngine``'s order and logs the same event timeline."""
 
+    supports_wave = False   # handler_mode="wave" needs the batched arrays
+
     def __init__(self, data: Dict[str, np.ndarray],
                  partitions: List[np.ndarray], w_init: Params,
                  cfg: SimConfig, strategy: Optional[Any] = None, *,
                  device=None):
-        unsupported = {"scheduler": (cfg.scheduler, "heap"),
-                       "handler_mode": (cfg.handler_mode, "serial")}
-        for knob, (got, want) in unsupported.items():
-            if got != want:
-                raise NotImplementedError(
-                    f"SimConfig.{knob}={got!r} is not ported yet: it "
-                    f"arrives with ROADMAP.md Queue A item 4 (the batched "
-                    f"engine and wave handlers); the port runs "
-                    f"{knob}={want!r}")
+        if cfg.handler_mode not in ("serial", "wave"):
+            raise ValueError(
+                f"unknown handler_mode {cfg.handler_mode!r}; "
+                "expected 'serial' or 'wave'")
+        if cfg.handler_mode == "wave" and not self.supports_wave:
+            raise ValueError(
+                "handler_mode='wave' needs the batched scheduler "
+                "(SimConfig.scheduler='batched')")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.data = data
@@ -392,6 +586,8 @@ class FLEngine:
         self.rng = np.random.RandomState(cfg.seed)
         n = cfg.n_devices
         assert len(partitions) == n
+        # per-device partition sizes, resident for the wave handlers
+        self.part_sizes = np.asarray([len(p) for p in partitions], np.int64)
         self.devices = DeviceRegistry(cfg, self.rng)
         w_init = {k: v.to(self.device) for k, v in w_init.items()}
         self.server = make_server(cfg.server, w_init, ServerConfig(
@@ -422,11 +618,12 @@ class FLEngine:
         self.trainer = (CohortTrainer(self, cfg.cohort_size,
                                       cfg.cohort_channel_iters)
                         if cfg.cohort_size > 0 else SerialTrainer(self))
+        # resumable-loop state: ``run`` picks up where the last call stopped
         self._started = False
         self._now = 0.0
         self._seq = 0
-        self._events: List[Tuple] = []
-        self._waiting: List[int] = []
+        self._events: Optional[List[Tuple]] = None     # heap scheduler
+        self._waiting: Optional[Any] = None
         self._tail_logged = False
         self._sync_now = 0.0
         self._part_idx: Dict[int, torch.Tensor] = {}
@@ -473,43 +670,58 @@ class FLEngine:
         synchronous ones (FedAvg, MOON) ``_run_sync``."""
         if not self.strategy.event_driven:
             return self._run_sync(time_budget, max_rounds, eval_every)
-        if self._tail_logged:             # drop the previous call's tail log
+        return self._run_async(time_budget, max_rounds, eval_every)
+
+    # -- asynchronous event loop (Algs. 1-2) -------------------------------
+    def _resume(self) -> None:
+        """Drop the previous ``run`` call's trailing budget log, so that
+        ``run(t)`` then ``run(T)`` gives ``run(T)``'s history."""
+        if self._tail_logged:
             self.history.pop()
             self._tail_logged = False
+
+    def _push(self, t, kind, k, payload=None, h=0):
+        heapq.heappush(self._events, (t, self._seq, kind, k, payload, h))
+        self._seq += 1
+
+    def _run_async(self, time_budget: float, max_rounds: int,
+                   eval_every: int) -> List[LogEntry]:
+        self._resume()
         if not self._started:
+            self._events = []
+            self._waiting = []
             for k in range(self.cfg.n_devices):
                 self._push(self.rng.uniform(0, 0.05), "request", k)
             self._log(0.0)
             self._started = True
-        events, waiting = self._events, self._waiting
+        events, waiting, push = self._events, self._waiting, self._push
         now = self._now
         while events:
+            # peek: a stop leaves the boundary event queued for a later call
             t_next = events[0][0]
             if t_next > time_budget or self.server.t >= max_rounds:
                 now = t_next
                 break
             now, _, kind, k, payload, h = heapq.heappop(events)
             if kind == "request":
-                self._handle_request(now, k, waiting)
+                self._handle_request(now, k, push, waiting)
             elif kind == "failure":
-                self._handle_failure(now, k, payload, waiting)
+                self._handle_failure(now, k, payload, push, waiting)
             else:
-                self._handle_arrival(now, k, payload, h, eval_every, waiting)
+                self._handle_arrival(now, k, payload, h, eval_every, push,
+                                     waiting)
         self._now = now
         self._log(min(now, time_budget))
         self._tail_logged = True
         return self.history
 
-    def _push(self, t, kind, k, payload=None, h=0):
-        heapq.heappush(self._events, (t, self._seq, kind, k, payload, h))
-        self._seq += 1
-
-    def _drain_waiting(self, now, waiting) -> None:
+    def _drain_waiting(self, now, push, waiting) -> None:
+        # re-issue at most free-slot many waiting requests
         free = self.server.cfg.max_parallel - self.server.active
         for _ in range(min(free, len(waiting))):
-            self._push(now, "request", waiting.pop(0))
+            push(now, "request", waiting.pop(0))
 
-    def _handle_request(self, now, k, waiting) -> None:
+    def _handle_request(self, now, k, push, waiting) -> None:
         cfg = self.cfg
         if not self.devices.alive[k]:
             return
@@ -533,7 +745,7 @@ class FLEngine:
                 dl, cp, _ = self.devices.round_latency(
                     k, nbytes_down * 8, 0.0, n_batches, self.scenario_rng)
                 fail_at = now + self.scenario_rng.uniform(0.0, dl + cp)
-                self._push(fail_at, "failure", k, mode)
+                push(fail_at, "failure", k, mode)
                 return
 
         if self.trainer.deferred:
@@ -545,7 +757,7 @@ class FLEngine:
             n_batches = max(1, task.n_k // cfg.batch_size)
             dl, cp, ul = self.devices.round_latency(
                 k, nbytes_down * 8, nbytes_up * 8, n_batches, self.rng)
-            self._push(now + dl + cp + ul, "arrival", k, task, t0)
+            push(now + dl + cp + ul, "arrival", k, task, t0)
             return
 
         w_recv, nbytes_down = codec.roundtrip(w_t, rng=self.rng)
@@ -556,9 +768,9 @@ class FLEngine:
         n_batches = max(1, n_k // cfg.batch_size)
         dl, cp, ul = self.devices.round_latency(
             k, nbytes_down * 8, nbytes_up * 8, n_batches, self.rng)
-        self._push(now + dl + cp + ul, "arrival", k, (w_up, n_k), t0)
+        push(now + dl + cp + ul, "arrival", k, (w_up, n_k), t0)
 
-    def _handle_failure(self, now, k, mode, waiting) -> None:
+    def _handle_failure(self, now, k, mode, push, waiting) -> None:
         """Mid-round device loss: free the slot, re-dispatch the capacity to
         the waiting queue; transient failures retry after a backoff."""
         self.server.active = max(0, self.server.active - 1)
@@ -567,12 +779,12 @@ class FLEngine:
             self.stats.dropouts += 1
         else:
             self.stats.transient_failures += 1
-            self._push(now + self.scenario.retry_backoff, "request", k)
+            push(now + self.scenario.retry_backoff, "request", k)
         if waiting:
             self.stats.redispatched += 1
-        self._drain_waiting(now, waiting)
+        self._drain_waiting(now, push, waiting)
 
-    def _handle_arrival(self, now, k, payload, h, eval_every,
+    def _handle_arrival(self, now, k, payload, h, eval_every, push,
                         waiting) -> None:
         self.strategy.policy.observe_arrival(k, max(0, self.server.t - h))
         done_round = self.strategy.on_arrival(self, now, k, payload, h)
@@ -581,8 +793,8 @@ class FLEngine:
         if done_round and self.server.t % eval_every == 0:
             self._log(now)
         if self.devices.alive[k]:
-            self._push(now, "request", k)
-        self._drain_waiting(now, waiting)
+            push(now, "request", k)
+        self._drain_waiting(now, push, waiting)
 
     # -- synchronous loop (FedAvg / MOON) ----------------------------------
     def _run_sync(self, time_budget: float, max_rounds: int,
@@ -617,3 +829,437 @@ class FLEngine:
                 self._log(now)
         self._sync_now = now
         return self.history
+
+
+# ----------------------------------------------------------------------
+# Batched scheduler (SimConfig.scheduler = "batched")
+# ----------------------------------------------------------------------
+class BatchedEngine(FLEngine):
+    """The same event machine as :class:`FLEngine`, with the heap replaced
+    by the resident per-device arrays of :class:`EventTable`.
+
+    Nothing protocol-visible changes in ``handler_mode="serial"``: the next
+    ``SELECT_K`` events are selected in one numpy call in the heap's exact
+    ``(time, seq)`` order; events pushed during a batch land in the arrays,
+    and those inside the batch's horizon also enter a small overflow heap
+    that the loop interleaves, so the handlers see the heap's event order
+    and draw the RNG streams in its order.  The initial request burst is one
+    vectorized ``uniform`` draw (the same stream as ``n`` scalar draws), the
+    waiting queue an O(1)-pop FIFO, and arrivals go through the batched
+    strategy and policy hooks as groups of one.
+
+    **Wave mode** (``handler_mode="wave"``) splits each selected batch into
+    maximal same-kind runs and processes every run as arrays:
+
+    * grant waves (Alg. 1 Distributor): one liveness mask, one
+      admission-gate slice (the first ``free`` members dispatch, the rest
+      park with one ``_FifoWaiting.extend``), codecs from ``channels_for``
+      priced once per distinct codec, one ``round_latency_batch`` whose
+      draws go to the members in ascending device-id order, and one
+      arrival scatter;
+    * arrival waves (Alg. 2, Eqs. 6-10): one ``observe_arrivals`` scatter,
+      then ``on_arrivals``; the TEA family fuses the cache inserts and the
+      aggregation (``receive_many``, the stacked form), in segments that
+      end at cache fills so each eval log sees its round's server state.
+      Re-requests and the waiting-queue drain (one ``pop_many``) follow as
+      one request scatter.
+
+    The relaxed-parity contract against ``"serial"`` is the JAX package's:
+    draws are batched per wave (grant latencies in device-id order,
+    scenario draws in wave order); events spawned by a wave are processed
+    after it, never between its members; one aggregation reduces by a
+    tensordot; and a cohort group with no local step runs
+    ``_zero_step_round``.  The event timeline still depends only on numpy
+    draws and shape-only wire sizes, so a wave run equals the JAX wave run
+    in every time, round and byte column."""
+
+    SELECT_K = 1024   # selection width; correctness is width-independent
+
+    supports_wave = True
+
+    def _start_table(self) -> "EventTable":
+        table = self.devices.event_table()
+        n = self.cfg.n_devices
+        if not self._started:
+            if n:
+                # one vectorized draw == the heap path's n scalar draws
+                table.time[:] = self.rng.uniform(0.0, 0.05, n)
+                table.seq[:] = np.arange(n)
+                table.kind[:] = KIND_IDS["request"]
+            self._seq = n
+            self._waiting = _FifoWaiting()
+            self._log(0.0)
+            self._started = True
+        return table
+
+    def _run_async(self, time_budget: float, max_rounds: int,
+                   eval_every: int) -> List[LogEntry]:
+        if self.cfg.handler_mode == "wave":
+            return self._run_wave(time_budget, max_rounds, eval_every)
+        self._resume()
+        table = self._start_table()
+        waiting = self._waiting
+        spawned: List[Tuple[float, int, str, int, Any, int]] = []
+        horizon = (np.inf, np.inf)   # (time, seq) of the batch's last event
+
+        def push(t, kind, k, payload=None, h=0):
+            table.put(k, t, self._seq, kind, payload, h)
+            if (t, self._seq) < horizon:
+                heapq.heappush(spawned, (t, self._seq, kind, k, payload, h))
+            self._seq += 1
+
+        now = self._now
+        stop = False
+        while not stop:
+            sel = table.select_batch(self.SELECT_K)
+            if not len(sel):
+                break
+            ts = table.time[sel].tolist()
+            ss = table.seq[sel].tolist()
+            kinds = table.kind[sel].tolist()
+            hs = table.h[sel].tolist()
+            batch = [(ts[i], ss[i], KIND_NAMES[kinds[i]], k,
+                      table.payload[k], hs[i])
+                     for i, k in enumerate(sel.tolist())]
+            horizon = (batch[-1][0], batch[-1][1])
+            i, m = 0, len(batch)
+            while i < m or spawned:
+                if spawned and (i >= m or spawned[0][:2] < batch[i][:2]):
+                    ev = heapq.heappop(spawned)
+                else:
+                    ev = batch[i]
+                    i += 1
+                now, _, kind, k, payload, h = ev
+                if now > time_budget or self.server.t >= max_rounds:
+                    # stop before clearing: the boundary event stays in the
+                    # table, so a later ``run`` resumes exactly here
+                    stop = True
+                    break
+                table.clear(k)
+                if kind == "request":
+                    self._handle_request(now, k, push, waiting)
+                elif kind == "failure":
+                    self._handle_failure(now, k, payload, push, waiting)
+                else:
+                    self._handle_arrival(now, k, payload, h, eval_every,
+                                         push, waiting)
+            spawned.clear()   # leftovers (on stop) still live in `table`
+            horizon = (np.inf, np.inf)
+        self._now = now
+        self._log(min(now, time_budget))
+        self._tail_logged = True
+        return self.history
+
+    def _handle_arrival(self, now, k, payload, h, eval_every, push,
+                        waiting) -> None:
+        # FLEngine._handle_arrival through the batched hooks (groups of one)
+        self.strategy.policy.observe_arrivals(
+            [k], [max(0, self.server.t - h)])
+        done_round, = self.strategy.on_arrivals(self, [(now, k, payload, h)])
+        self.stats.completions += 1
+        self.stats.completed_per_device[k] += 1
+        if done_round and self.server.t % eval_every == 0:
+            self._log(now)
+        if self.devices.alive[k]:
+            push(now, "request", k)
+        self._drain_waiting(now, push, waiting)
+
+    # -- wave mode (handler_mode="wave") -----------------------------------
+    def _run_wave(self, time_budget: float, max_rounds: int,
+                  eval_every: int) -> List[LogEntry]:
+        """The serial batched loop's selection, with each maximal same-kind
+        run of a batch dispatched as one wave.  Events spawned by a wave
+        join the table at once and interleave at the next wave boundary."""
+        self._resume()
+        table = self._start_table()
+        n = self.cfg.n_devices
+        waiting = self._waiting
+        # overflow heap of events spawned inside the current batch horizon:
+        # (time, seq, kind_id, device, payload, h)
+        spawned: List[Tuple[float, int, int, int, Any, int]] = []
+        horizon = (np.inf, np.inf)
+
+        def push(t, kind, k, payload=None, h=0):
+            table.put(k, t, self._seq, kind, payload, h)
+            if (t, self._seq) < horizon:
+                heapq.heappush(spawned,
+                               (t, self._seq, KIND_IDS[kind], k, payload, h))
+            self._seq += 1
+
+        def push_wave(ts_w, ks_w, kind, payloads, h):
+            g = len(ks_w)
+            if not g:
+                return
+            seqs = self._seq + np.arange(g)
+            self._seq += g
+            table.put_wave(ks_w, ts_w, seqs, kind, payloads, h)
+            # fresh seqs exceed the horizon's, so only a strictly earlier
+            # time puts a new event inside the current batch
+            kid = KIND_IDS[kind]
+            for j in np.flatnonzero(ts_w < horizon[0]).tolist():
+                heapq.heappush(spawned, (
+                    float(ts_w[j]), int(seqs[j]), kid, int(ks_w[j]),
+                    None if payloads is None else payloads[j], int(h)))
+
+        req_id = KIND_IDS["request"]
+        arr_id = KIND_IDS["arrival"]
+        now = self._now
+        stop = False
+        while not stop:
+            sel = table.select_batch(self.SELECT_K)
+            if not len(sel):
+                break
+            ts = table.time[sel]
+            ss = table.seq[sel]
+            kinds = table.kind[sel]
+            hs = table.h[sel]
+            payloads = [table.payload[k] for k in sel.tolist()]
+            horizon = (float(ts[-1]), int(ss[-1]))
+            bounds = np.flatnonzero(np.diff(kinds) != 0) + 1
+            i, m, b = 0, len(sel), 0
+            while i < m or spawned:
+                if not spawned:
+                    # the next run is a contiguous slice of the batch
+                    while b < len(bounds) and bounds[b] <= i:
+                        b += 1
+                    j = int(bounds[b]) if b < len(bounds) else m
+                    wts, wks = ts[i:j], sel[i:j]
+                    wps, whs = payloads[i:j], hs[i:j]
+                    kid = int(kinds[i])
+                    i = j
+                else:
+                    # merge the overflow heap with the batch cursor, event
+                    # by event, until the kind changes
+                    rt: List[float] = []
+                    rk: List[int] = []
+                    rp: List[Any] = []
+                    rh: List[int] = []
+                    kid = -1
+                    while True:
+                        if spawned and (i >= m or
+                                        (spawned[0][0], spawned[0][1])
+                                        < (ts[i], ss[i])):
+                            e = spawned[0]
+                            if kid < 0:
+                                kid = e[2]
+                            elif e[2] != kid:
+                                break
+                            heapq.heappop(spawned)
+                            rt.append(e[0])
+                            rk.append(e[3])
+                            rp.append(e[4])
+                            rh.append(e[5])
+                        elif i < m:
+                            if kid < 0:
+                                kid = int(kinds[i])
+                            elif int(kinds[i]) != kid:
+                                break
+                            rt.append(float(ts[i]))
+                            rk.append(int(sel[i]))
+                            rp.append(payloads[i])
+                            rh.append(int(hs[i]))
+                            i += 1
+                        else:
+                            break
+                    wts = np.asarray(rt, np.float64)
+                    wks = np.asarray(rk, np.int64)
+                    wps, whs = rp, np.asarray(rh, np.int64)
+                if self.server.t >= max_rounds:
+                    stop = True
+                    break
+                # budget / round-cap prefix cut: unprocessed members keep
+                # their slots, so a later ``run`` resumes here.  A partial
+                # budget cut does not end the loop: the processed prefix
+                # spawns re-requests still inside the budget, which the
+                # serial order grants before stopping; every later wave is
+                # cut too, down to zero.  The round cap stops at the
+                # capping event, like the serial loop.
+                cut = int(np.searchsorted(wts, time_budget, side="right"))
+                capped = False
+                if kid == arr_id:
+                    srv = self.server
+                    if getattr(self.strategy, "arrival_wave", False):
+                        allowed = ((max_rounds - srv.t)
+                                   * srv.cfg.cache_size - len(srv.cache))
+                    else:
+                        allowed = max_rounds - srv.t
+                    if max(0, allowed) < cut:
+                        cut = max(0, allowed)
+                        capped = True
+                if cut < len(wts):
+                    stop = True
+                    if not cut:
+                        break
+                    wts, wks = wts[:cut], wks[:cut]
+                    wps, whs = wps[:cut], whs[:cut]
+                table.clear_wave(wks)
+                if kid == req_id:
+                    self._wave_requests(wts, wks, push, push_wave, waiting)
+                elif kid == arr_id:
+                    self._wave_arrivals(wts, wks, wps, whs, eval_every,
+                                        push, push_wave, waiting)
+                else:
+                    for t_f, k_f, p_f in zip(wts.tolist(), wks.tolist(),
+                                             wps):
+                        self._handle_failure(t_f, int(k_f), p_f, push,
+                                             waiting)
+                if not stop:
+                    now = float(wts[-1])
+                if capped:
+                    break
+            spawned.clear()   # leftovers (on stop) still live in `table`
+            horizon = (np.inf, np.inf)
+        if stop:
+            # resume cursor = the earliest unprocessed event, where the
+            # serial loops stop (empty slots hold +inf)
+            rem = float(table.time.min()) if n else np.inf
+            if np.isfinite(rem):
+                now = rem
+        self._now = now
+        self._log(min(now, time_budget))
+        self._tail_logged = True
+        return self.history
+
+    def _wave_requests(self, wts, wks, push, push_wave, waiting) -> None:
+        """Alg. 1 Distributor over a request run: one liveness mask, one
+        admission-gate slice, one wire-pricing pass over the wave's codecs,
+        one scenario draw vector, one ``round_latency_batch`` (device-id
+        draw order) and one arrival scatter."""
+        dv = self.devices
+        mask = dv.alive[wks]
+        if not mask.all():
+            wks, wts = wks[mask], wts[mask]
+        srv = self.server
+        free = max(srv.cfg.max_parallel - srv.active, 0)
+        if free < len(wks):
+            waiting.extend(wks[free:].tolist())
+            wks, wts = wks[:free], wts[:free]
+        g = len(wks)
+        if not g:
+            return
+        if not self.trainer.deferred:
+            # the serial trainer's codec round trips interleave RNG draws
+            # with the latency draws per grant: keep the scalar handler
+            for t_s, k_s in zip(wts.tolist(), wks.tolist()):
+                self._handle_request(t_s, int(k_s), push, waiting)
+            return
+        self.stats.dispatches += g
+        srv.active += g
+        w_t, t0 = srv.w, srv.t
+        codecs = self.strategy.channels_for(t0, wks)
+        tiers = dv.tier[wks]
+        # wire price once per distinct codec instance (shape-only sizes,
+        # cached instances)
+        nbytes = np.empty(g, np.int64)
+        seen: Dict[int, int] = {}
+        for idx, c in enumerate(codecs):
+            v = seen.get(id(c))
+            if v is None:
+                v = seen[id(c)] = c.wire_bytes(w_t)
+            nbytes[idx] = v
+
+        scen = self.scenario
+        if scen is not None and scen.active and (
+                scen.dropout_prob + scen.failure_prob > 0):
+            u = self.scenario_rng.random_sample(g)
+            fail = u < scen.dropout_prob + scen.failure_prob
+            if fail.any():
+                f = np.flatnonzero(fail)
+                # failing members: down metered, a failure event mid-round;
+                # latency and fail-point draws in device-id order
+                f = f[np.argsort(wks[f], kind="stable")]
+                fks = wks[f]
+                self.channel.down_wave(nbytes[f], tiers[f])
+                nb = np.maximum(1, self.part_sizes[fks]
+                                // self.cfg.batch_size)
+                dl, cp, _ = dv.round_latency_batch(
+                    fks, nbytes[f] * 8.0, np.zeros(len(f)), nb,
+                    self.scenario_rng)
+                fail_at = wts[f] + self.scenario_rng.uniform(
+                    0.0, dl + cp, len(f))
+                for j, fi in enumerate(f.tolist()):
+                    push(float(fail_at[j]), "failure", int(wks[fi]),
+                         "dropout" if u[fi] < scen.dropout_prob
+                         else "transient")
+                keep = ~fail
+                wks, wts = wks[keep], wts[keep]
+                nbytes, tiers = nbytes[keep], tiers[keep]
+                codecs = [c for c, kp in zip(codecs, keep.tolist()) if kp]
+                g = len(wks)
+                if not g:
+                    return
+
+        self.channel.down_wave(nbytes, tiers)
+        tasks = [self.trainer.submit(int(k), w_t, t0, c.p_s, c.p_q)
+                 for k, c in zip(wks.tolist(), codecs)]
+        self.channel.up_wave(nbytes, tiers)
+        order = np.argsort(wks, kind="stable")   # device-id draw order
+        ko = wks[order]
+        bits = nbytes[order] * 8.0
+        nb = np.maximum(1, self.part_sizes[ko] // self.cfg.batch_size)
+        dl, cp, ul = dv.round_latency_batch(ko, bits, bits, nb, self.rng)
+        push_wave(wts[order] + dl + cp + ul, ko, "arrival",
+                  [tasks[idx] for idx in order.tolist()], t0)
+
+    def _wave_arrivals(self, wts, wks, wps, whs, eval_every, push,
+                       push_wave, waiting, push_wave_free=None,
+                       max_rounds=None) -> None:
+        """Alg. 2 Receiver/Updater over an arrival run.  Strategies with
+        ``arrival_wave`` fuse the cache inserts and the Eqs. 6-10
+        aggregation through ``on_arrivals``, in segments that end at cache
+        fills so each eval log sees its round; others keep the scalar
+        handler.  ``push_wave_free`` routes the re-request scatter (a
+        multi-task fleet hands requests back unassigned); ``max_rounds``,
+        when given, drops the arrivals past the round cap (a fleet's
+        finished job)."""
+        srv = self.server
+        strategy = self.strategy
+        fused = getattr(strategy, "arrival_wave", False)
+        if max_rounds is not None:
+            allowed = ((max_rounds - srv.t) * srv.cfg.cache_size
+                       - len(srv.cache)) if fused else max_rounds - srv.t
+            allowed = max(0, allowed)
+            if allowed < len(wks):
+                wts, wks = wts[:allowed], wks[:allowed]
+                wps, whs = wps[:allowed], whs[:allowed]
+        g = len(wks)
+        if not g:
+            return
+        if not fused or (g == 1 and push_wave_free is None):
+            for idx in range(g):
+                self._handle_arrival(float(wts[idx]), int(wks[idx]),
+                                     wps[idx], int(whs[idx]), eval_every,
+                                     push, waiting)
+            return
+        K = srv.cfg.cache_size
+        t0, c0 = srv.t, len(srv.cache)
+        # staleness of arrival idx as the serial loop would see it: t has
+        # advanced by one per preceding cache fill
+        stal = np.maximum(0, t0 + (c0 + np.arange(g)) // K - whs)
+        strategy.policy.observe_arrivals(wks.tolist(), stal.tolist())
+        ks_l, hs_l = wks.tolist(), whs.tolist()
+        arrivals = [(float(wts[idx]), ks_l[idx], wps[idx], hs_l[idx])
+                    for idx in range(g)]
+        start = 0
+        while start < g:
+            seg_end = min(g, start + (K - len(srv.cache)))
+            dones = strategy.on_arrivals(self, arrivals[start:seg_end])
+            if dones[-1] and srv.t % eval_every == 0:
+                self._log(float(wts[seg_end - 1]))
+            start = seg_end
+        self.stats.completions += g
+        # a wave may hold one device twice
+        np.add.at(self.stats.completed_per_device, wks, 1)
+        alive = self.devices.alive[wks]
+        (push_wave_free or push_wave)(wts[alive], wks[alive],
+                                      "request", None, 0)
+        # one-slice drain: drained request j fires at arrival j's time
+        n_drain = min(len(waiting), max(0, srv.cfg.max_parallel
+                                        - srv.active))
+        if n_drain:
+            drained = np.asarray(waiting.pop_many(n_drain), np.int64)
+            push_wave(wts[:n_drain], drained, "request", None, 0)
+
+
+# scheduler registry: SimConfig.scheduler -> engine class
+SCHEDULERS: Dict[str, type] = {"heap": FLEngine, "batched": BatchedEngine}

@@ -13,7 +13,10 @@ baselines (``fedasync``, ``port``, ``asofed``: every arrival is mixed into
 the global model), and the synchronous ones (``fedavg``, ``moon``), which
 run the engine's ``_run_sync`` loop.  Every ``on_arrival`` resolves its
 payload through ``engine.resolve_payload``, so each protocol also runs on
-the cohort trainer's deferred tasks.
+the cohort trainer's deferred tasks.  The batched scheduler's wave
+handlers talk to a strategy through group-shaped hooks (``channels_for``
+on grants, ``on_arrivals`` on arrivals); the TEA family fuses an arrival
+wave into the server's ``receive_many``.
 """
 from __future__ import annotations
 
@@ -42,6 +45,9 @@ class ProtocolStrategy:
 
     method: ClassVar[str] = ""
     event_driven: ClassVar[bool] = True
+    # True when on_arrivals fuses a whole arrival wave: the wave engine
+    # routes arrival runs through it only for strategies that declare it
+    arrival_wave: ClassVar[bool] = False
 
     def __init__(self, cfg: SimConfig):
         self.cfg = cfg
@@ -66,10 +72,36 @@ class ProtocolStrategy:
         raise NotImplementedError(
             f"{self.method} is not an event-driven protocol")
 
+    # -- batched hooks (BatchedEngine) ----------------------------------
+    def channels_for(self, t: int, device_ids) -> List[Codec]:
+        """The wire codec for each device of a round-``t`` grant wave:
+        through the policy's ``codecs_for`` (one resolve per distinct
+        point) when the strategy keeps the stock ``channel_for``, else the
+        override per device."""
+        if type(self).channel_for is ProtocolStrategy.channel_for:
+            p_s, p_q = self.compression_at(t)
+            return self.policy.codecs_for(t, device_ids, p_s, p_q)
+        return [self.channel_for(t, device_id=int(k)) for k in device_ids]
+
+    def on_arrivals(self, engine, arrivals) -> List[bool]:
+        """``arrivals`` is ``[(now, k, payload, h), ...]`` in event order;
+        returns the per-arrival done-round flags (default: ``on_arrival``
+        in order)."""
+        return [self.on_arrival(engine, now, k, payload, h)
+                for now, k, payload, h in arrivals]
+
     def aggregate(self, engine, updates: List[Params],
                   weights: List[int]) -> Params:
         raise NotImplementedError(
             f"{self.method} does not run the synchronous loop")
+
+    # -- checkpoint state: a registered strategy keeps none beyond its
+    # policy's staleness estimates
+    def state_dict(self) -> Dict[str, Any]:
+        return {"policy": self.policy.state_dict()}
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        self.policy.load_state(state["policy"])
 
 
 # -- TEA-Fed family: cached staleness-weighted aggregation (Alg. 2) -------
@@ -77,10 +109,23 @@ class TeaStrategy(ProtocolStrategy):
     """TEA-Fed: asynchronous cached aggregation, no wire compression."""
 
     method = "tea"
+    arrival_wave = True   # Alg. 2 is order-insensitive within a cache fill
 
     def on_arrival(self, engine, now, k, payload, h) -> bool:
         w_local, n_k = engine.resolve_payload(payload)
         return engine.server.receive(w_local, h, n_k)
+
+    def on_arrivals(self, engine, arrivals) -> List[bool]:
+        """Alg. 2 over an arrival group in wave mode: resolve every
+        payload, then one ``receive_many`` (the stacked Eqs. 6-10 kernel
+        per cache fill).  Singletons and serial mode keep ``receive``."""
+        if len(arrivals) <= 1 or engine.cfg.handler_mode != "wave":
+            return super().on_arrivals(engine, arrivals)
+        entries = []
+        for _now, _k, payload, h in arrivals:
+            w_local, n_k = engine.resolve_payload(payload)
+            entries.append((w_local, h, n_k))
+        return engine.server.receive_many(entries)
 
 
 class TeasStrategy(TeaStrategy):
@@ -233,13 +278,31 @@ def make_setup(n_devices: int = 100, iid: bool = True, seed: int = 0,
 
 def make_sim(data, parts, w0: Params, cfg: SimConfig, *, device=None):
     """Build a runnable engine on ``device`` (the card unless the caller
-    names another)."""
-    from repro_torch.fl.engine import FLEngine
-    if cfg.scheduler != "heap":
-        raise NotImplementedError(
-            f"scheduler {cfg.scheduler!r} is not ported yet: it arrives "
-            f"with ROADMAP.md Queue A item 4 (the batched engine)")
-    return FLEngine(data, parts, w0, cfg, device=device)
+    names another).  ``cfg.scheduler`` picks its event loop from
+    ``repro_torch.fl.engine.SCHEDULERS``: the ``"heap"`` one or the
+    array-backed ``"batched"`` one (which also runs
+    ``handler_mode="wave"``)."""
+    from repro_torch.fl.engine import SCHEDULERS
+    try:
+        engine_cls = SCHEDULERS[cfg.scheduler]
+    except KeyError:
+        raise ValueError(
+            f"unknown scheduler {cfg.scheduler!r}; "
+            f"expected one of {sorted(SCHEDULERS)}") from None
+    return engine_cls(data, parts, w0, cfg, device=device)
+
+
+def train_global(data, parts, w0: Params, time_budget: float = 20.0,
+                 seed: int = 0, *, device=None, **kw) -> Params:
+    """Briefly train a global model (TEA protocol) and return its weights:
+    Algorithm 5 profiles compression on a trained model, not the random
+    init.  ``kw`` entries that are ``SimConfig`` fields configure the run;
+    others are ignored, as in the JAX package."""
+    cfg = SimConfig(method="tea", n_devices=len(parts), seed=seed,
+                    **{k: v for k, v in kw.items() if hasattr(SimConfig, k)})
+    sim = make_sim(data, parts, w0, cfg, device=device)
+    sim.run(time_budget=time_budget, eval_every=10 ** 9)
+    return sim.server.w
 
 
 def profile_compression(w: Params, data: Dict[str, np.ndarray],

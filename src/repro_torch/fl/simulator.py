@@ -136,9 +136,10 @@ class ScenarioConfig:
 class SimConfig:
     """Every knob of a simulated run, with the JAX package's names and
     defaults (see its ``SimConfig`` docstring for each one).  The port runs
-    ``scheduler="heap"``, ``handler_mode="serial"`` and
-    ``server="single"`` (``FLEngine`` raises on any other value until Queue
-    A items 4 and 8 port them), with the serial trainer or, at
+    both schedulers (``"heap"``, ``"batched"``), both handler modes
+    (``"serial"``; ``"wave"`` on the batched scheduler only), every codec
+    policy, and ``server="single"`` (``"sharded"`` raises until ROADMAP.md
+    Queue A item 5 ports it), with the serial trainer or, at
     ``cohort_size > 0``, the cohort trainer."""
 
     method: str = "teasq"

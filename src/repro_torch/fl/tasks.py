@@ -16,7 +16,7 @@ need to train one model family under any protocol:
 * ``forward`` / ``features`` -- logits and penultimate representation.
 
 The port registers the paper's ``fmnist_cnn``; the other families arrive
-with ROADMAP.md Queue A item 6 and raise until then.
+with ROADMAP.md Queue A item 3 and raise until then.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from repro_torch.models.cnn import (cnn_accuracy, cnn_cohort_loss,
 __all__ = ["FLTask", "TASKS", "get_task", "register_task"]
 
 # where the not-yet-ported tasks arrive
-_LATER = {name: "ROADMAP.md Queue A item 6 (the other model families)"
+_LATER = {name: "ROADMAP.md Queue A item 3 (the other model families)"
           for name in ("fmnist_mlp", "transformer_lm", "moe_lm", "ssm_lm")}
 
 

@@ -33,7 +33,7 @@ from repro_torch.utils.tree import resolve_device, tree_map
 
 # where serving from a simulator checkpoint arrives
 _FROM_SIM_LATER = ("serving from a simulator checkpoint needs "
-                   "checkpoint/io.py: ROADMAP.md Queue A item 5")
+                   "checkpoint/io.py: ROADMAP.md Queue A item 2")
 
 
 def _sync(t: torch.Tensor) -> None:

@@ -138,12 +138,12 @@ def test_engine_resumes_and_stops_at_max_rounds(setups):
 
 def test_unported_settings_raise(setups):
     _, (data, parts, w0) = setups
-    for knobs in (dict(scheduler="batched"), dict(handler_mode="wave")):
-        with pytest.raises(NotImplementedError):
-            make_sim(data, parts, w0, SimConfig(n_devices=8, **knobs),
-                     device="cpu")
-    for knobs in (dict(server="sharded"), dict(codec_policy="tier_aware"),
-                  dict(task="transformer_lm")):
+    # wave handlers need the batched scheduler, as in the JAX package
+    with pytest.raises(ValueError, match="batched"):
+        make_sim(data, parts, w0, SimConfig(n_devices=8,
+                                            handler_mode="wave"),
+                 device="cpu")
+    for knobs in (dict(server="sharded"), dict(task="transformer_lm")):
         with pytest.raises(NotImplementedError):
             tengine.FLEngine(data, parts, w0, SimConfig(n_devices=8, **knobs),
                              device="cpu")

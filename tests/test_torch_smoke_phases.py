@@ -1,0 +1,37 @@
+"""chip_smoke.py's phases of the batched scheduler (16-19), rehearsed on
+CPU tensors at a small fleet, so that the script's own checks do not rot
+between card runs."""
+import os
+import sys
+
+from torch_threads import one_torch_thread  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_chip_smoke_batched_phases_rehearse_on_cpu(capsys):
+    """chip_smoke.py's phases 16-19 on CPU tensors at a small fleet: the
+    batched-against-heap and wave card-against-CPU phases pass (CPU
+    against CPU here); the wave runs of phases 17 and 18 run, time their
+    layers, hold the inputs their channel calls kept against the plain
+    version (the plain version twice here), and then fail their launch
+    check, as they must off the card."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500,
+                             ssm_smoke=True, wave_fleet=1000,
+                             wave_walls=(3.0, 1.5))
+    for phase in (smoke.batched_vs_heap, smoke.wave_dispatch,
+                  smoke.wave_steps, smoke.wave_card_vs_cpu):
+        smoke.phase(phase.__name__, phase)
+    assert smoke.failures == ["wave_dispatch", "wave_steps"]
+    out = capsys.readouterr()
+    assert out.err.count(
+        "AssertionError: kernel B did not run inside sim.run") == 2
+    checked = [ln for ln in out.out.splitlines()
+               if "on the run's own inputs" in ln]
+    assert len(checked) == 2 and "zero_step:" in checked[0]
+    assert not any(k.startswith("wave") for k in smoke.kernels["topk_quant"])
