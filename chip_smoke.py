@@ -92,8 +92,31 @@ Phases, in order; the script exits nonzero if any of them fails:
    channel call is the up-channel of a cohort padded to 32).
 19. Wave mode, the card against the CPU: 64 devices with a binding gate
    (``c_fraction=0.1``), cohort 8; the time, round and byte columns and
-   ``stats`` equal, accuracy within ``ACC_TOL``.  Then one JSON line of
-   kernels, the card's ``nvidia-smi`` line, and the last line
+   ``stats`` equal, accuracy within ``ACC_TOL``.
+20. The multi-task fleet at full width, through ``build_fleet`` and
+   ``MultiTaskEngine.run(max_rounds=5)``: 100 devices and 60,000/10,000
+   samples per job (per-job data seeds), job 0 TEASQ on the CNN with
+   ``cohort_size=8``, (0.25, 8) and the packed wire, job 1 fedasync on the
+   MLP in dense f32 on the serial trainer; the batched scheduler in wave
+   mode with the adaptive assigner.  Every launch counter set to 0 before
+   and read after: kernel B's channel form must have run inside
+   ``MultiTaskEngine.run``.  Per job: rounds, completions, wall per round;
+   for the fleet: ms per task and B's launches.  The run's largest channel
+   input (cloned on the device during the run) through B's channel form
+   against its plain version: bit-identical.
+21. Checkpoint and resume on the card: phase 12's cohort engine on the
+   heap, cut at round 4 of 8, and phase 20's fleet, cut at half its
+   virtual time; each ``state_dict`` through ``save_blob`` into a
+   temporary directory, a fresh instance restored with ``load_state`` and
+   run on beside the never-serialized one: the time, round and byte
+   columns, ``stats`` and the pending events equal, accuracy within
+   ``BATCHED_ACC_TOL``, the largest weight difference printed; and
+   ``load_sim_params(path, like, task=j, device="cpu")`` equal to job j's
+   weights at the cut, bit for bit.
+22. The fleet, the card against the CPU: phase 20's two jobs on 12 devices
+   and 640 samples per job, in wave mode; the columns, ``stats`` and
+   pending events equal, accuracy within ``ACC_TOL``.  Then one JSON line
+   of kernels, the card's ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Every card-against-CPU comparison asks for equal time, round and byte
@@ -134,6 +157,10 @@ NEAR_TIE = 1e-3                   # top-2 logit margin a token flip may have
 # batched against heap scheduler on the card: the same ops in the same
 # order, up to the card's own run-to-run float differences
 BATCHED_ACC_TOL = 1e-4
+COLUMNS = ("time", "round", "bytes_up", "bytes_down", "max_model_bytes_up",
+           "max_model_bytes_down")
+STATS = ("dispatches", "completions", "dropouts", "transient_failures",
+         "redispatched", "flushes", "flushed_tasks")
 LOGIT_TOL = 1e-4                  # SSM prefill logits, card against CPU
 
 
@@ -189,27 +216,35 @@ def b_launch(leaves, block: int, iters: int, slices=None):
             lv, sc)
 
 
-def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
+def kernel_device_ms(fn, name: str, reps: int = 20,
+                     attempts: int = 3) -> float:
     """Milliseconds on the card per launch of the kernels whose name holds
     ``name``, from torch.profiler over ``reps`` calls of ``fn`` (the
-    device's own kernel durations, whatever the host's pace)."""
+    device's own kernel durations, whatever the host's pace).  A profiled
+    window in which the profiler recorded no such kernel is taken again,
+    up to ``attempts`` windows in all (one window of a run once came back
+    without any device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key:
-            total += e.self_device_time_total / 1e3
-            count += e.count
-    if count == 0:
-        raise RuntimeError(f"the profiler saw no kernel named {name!r}")
-    return total / count
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    name in e.key:
+                total += e.self_device_time_total / 1e3
+                count += e.count
+        if count:
+            return total / count
+        print(f"   (the profiler recorded no kernel named {name!r} in a "
+              f"window of {reps} calls)")
+    raise RuntimeError(f"the profiler saw no kernel named {name!r}")
 
 
 class Smoke:
@@ -1555,6 +1590,277 @@ class Smoke:
               f"{ACC_TOL})")
 
 
+    # -- phase 20 -----------------------------------------------------------
+    def fleet_config(self, n_dev):
+        """The two jobs of phases 20-22 on one fleet of ``n_dev`` devices:
+        TEASQ on the CNN with the cohort trainer (8, (0.25, 8), the packed
+        wire) and dense fedasync on the MLP (serial trainer), batched
+        scheduler in wave mode, adaptive assigner."""
+        from repro_torch.fl.fleet import FleetConfig
+        from repro_torch.fl.simulator import SimConfig
+        common = dict(n_devices=n_dev, c_fraction=0.1, mu=0.01, alpha=0.6,
+                      seed=0)
+        return FleetConfig(
+            tasks=[SimConfig(method="teasq", task="fmnist_cnn", p_s=0.25,
+                             p_q=8, codec="packed", cohort_size=8,
+                             **common),
+                   SimConfig(method="fedasync", task="fmnist_mlp", p_s=1.0,
+                             p_q=32, **common)],
+            n_devices=n_dev, seed=0, scheduler="batched",
+            handler_mode="wave", assigner="adaptive")
+
+    def fleet_path(self):
+        torch = self.torch
+        from repro_torch.fl import engine as E
+        from repro_torch.fl.fleet import build_fleet
+        n_dev, n_train, n_test = self.fleet
+        cfg = self.fleet_config(n_dev)
+        t0 = time.perf_counter()
+        fleet = build_fleet(cfg, n_train=n_train, n_test=n_test,
+                            device=self.dev)
+        w0s = [{k: v.clone() for k, v in rt.server.w.items()}
+               for rt in fleet.runtimes]
+        print(f"   setup: {n_dev} devices, {n_train}/{n_test} samples per "
+              f"job, jobs {[c.task for c in cfg.tasks]} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        # the inputs of the run's channel call with the most rows, cloned
+        # on the device (no launch) for the check after the run
+        kept, channel = {}, E._channel
+
+        def keep(tree, *a, **k):
+            rows = next(iter(tree.values())).shape[0]
+            if rows > kept.get("channel", (0,))[0]:
+                kept["channel"] = (rows, {n: v.clone() for n, v in
+                                          tree.items()}, a, k)
+            return channel(tree, *a, **k)
+
+        E._channel = keep
+        try:
+            self.sync()
+            self.zero_counts()
+            t0 = time.perf_counter()
+            hists = fleet.run(time_budget=1e9, max_rounds=5)
+            self.sync()
+            wall = time.perf_counter() - t0
+            launches = self.read_counts()
+        finally:
+            E._channel = channel
+        self._fleet_run = (cfg, w0s, fleet, hists)
+        b = launches["topk_quant"]
+        tasks = sum(rt.stats.completions for rt in fleet.runtimes)
+        flushes = fleet.runtimes[0].stats.flushes
+        for j, (rt, h) in enumerate(zip(fleet.runtimes, hists)):
+            print(f"   job {j} ({rt.cfg.method} on {rt.cfg.task}): rounds "
+                  f"{h[-1].round}, completions {rt.stats.completions}, "
+                  f"dispatches {rt.stats.dispatches}, flushes "
+                  f"{rt.stats.flushes}; {wall / max(h[-1].round, 1):.4f} s "
+                  f"of the fleet's wall per round; accuracy "
+                  f"{h[-1].accuracy:.4f}, bytes up {h[-1].bytes_up}")
+        print(f"   fleet: wall {wall:.3f} s to virtual "
+              f"{max(h[-1].time for h in hists):.3f} s, {tasks} tasks, "
+              f"{wall * 1e3 / max(tasks, 1):.3f} ms per task; launches "
+              f"inside MultiTaskEngine.run: {launches}; kernel B "
+              f"{b / max(flushes, 1):.2f} per flush [{self.card()}]")
+        rows = self.wave_channel_check(kept)
+        print(f"   kernel B's channel form on the run's largest channel "
+              f"input ({rows['channel']} rows): bit-identical to the plain "
+              f"version (tolerance: exact)")
+        self.expect(b > 0, "kernel B did not run inside MultiTaskEngine.run")
+        self.expect(4 * flushes <= b <= 8 * flushes,
+                    f"{b} launches of kernel B for {flushes} flushes (2 "
+                    f"down and 2 up per flush group)")
+        self.expect(all(h[-1].round >= 5 for h in hists),
+                    f"rounds {[h[-1].round for h in hists]}, not 5 each")
+        self.expect(all(math.isfinite(e.accuracy) and 0 <= e.accuracy <= 1
+                        for h in hists for e in h),
+                    "accuracy not finite in [0, 1]")
+        self.expect(all(bool(torch.isfinite(v).all()) for rt in
+                        fleet.runtimes for v in rt.server.w.values()),
+                    "weights not finite")
+        self.kernels["topk_quant"].update(
+            fleet_launches_in_run=b, fleet_flushes=flushes,
+            fleet_wall_s=wall, fleet_tasks=tasks,
+            fleet_ms_per_task=wall * 1e3 / max(tasks, 1),
+            fleet_wall_s_per_round=[wall / max(h[-1].round, 1)
+                                    for h in hists],
+            fleet_checked_rows=rows["channel"])
+
+    # -- phase 21 -----------------------------------------------------------
+    def resumed(self, make, cut, tmp, name):
+        """``make()`` run with the arguments ``cut``, its ``state_dict``
+        through ``save_blob`` into the directory ``tmp``, and a fresh
+        ``make()`` restored from that file: (the never-serialized one, the
+        restored one, the file's path)."""
+        from repro_torch.checkpoint.io import load_blob, save_blob
+        a = make()
+        a.run(**cut)
+        path = os.path.join(tmp, name)
+        save_blob(path, a.state_dict())
+        b = make()
+        b.load_state(load_blob(path))
+        return a, b, path
+
+    def same_runs(self, what, a, b, ha, hb):
+        """The time, round and byte columns, ``stats`` and the pending
+        events equal; accuracy within ``BATCHED_ACC_TOL``.  Returns the
+        largest |weight difference| and |accuracy difference|."""
+        torch = self.torch
+        self.expect(len(ha) == len(hb), f"{what}: {len(ha)} vs {len(hb)} "
+                    f"entries")
+        for x, y in zip(ha, hb):
+            for c in COLUMNS:
+                self.expect(getattr(x, c) == getattr(y, c),
+                            f"{what} {c}: {getattr(x, c)} vs "
+                            f"{getattr(y, c)}")
+        for f in STATS:
+            self.expect(getattr(a.stats, f) == getattr(b.stats, f),
+                        f"{what} stats.{f}: {getattr(a.stats, f)} vs "
+                        f"{getattr(b.stats, f)}")
+        self.expect(bool((a.stats.completed_per_device
+                          == b.stats.completed_per_device).all()),
+                    f"{what}: completed_per_device differs")
+        dw = max(float((a.server.w[k] - b.server.w[k]).abs().max())
+                 for k in a.server.w)
+        da = max(abs(x.accuracy - y.accuracy) for x, y in zip(ha, hb))
+        self.expect(da <= BATCHED_ACC_TOL, f"{what}: accuracy differs by "
+                    f"{da} > {BATCHED_ACC_TOL}")
+        self.expect(all(bool(torch.isfinite(v).all())
+                        for v in b.server.w.values()),
+                    f"{what}: weights not finite")
+        return dw, da
+
+    def checkpoint_resume(self):
+        import tempfile
+        torch = self.torch
+        from repro_torch.checkpoint.io import load_sim_params
+        from repro_torch.core.dynamic import CompressionSchedule
+        from repro_torch.fl.fleet import MultiTaskEngine
+        from repro_torch.fl.protocols import make_sim
+        from repro_torch.fl.simulator import SimConfig
+        with tempfile.TemporaryDirectory() as tmp:
+            # (a) phase 12's cohort engine on the heap scheduler, cut at 4
+            # of its 8 rounds
+            data, parts, w0 = self.full_setup()
+            sched = CompressionSchedule(p_s0_idx=4, p_q0_idx=3, step_size=2)
+            cfg = SimConfig(method="teasq", n_devices=len(parts),
+                            c_fraction=0.1, mu=0.01, alpha=0.6, seed=0,
+                            codec="packed", cohort_size=8, schedule=sched)
+            t0 = time.perf_counter()
+            a, b, path = self.resumed(
+                lambda: make_sim(data, parts, w0, cfg, device=self.dev),
+                dict(time_budget=1e9, max_rounds=4), tmp, "engine.msgpack")
+            size = os.path.getsize(path)
+            pend = len(b.trainer.pending)
+            ha = a.run(time_budget=1e9, max_rounds=8)
+            hb = b.run(time_budget=1e9, max_rounds=8)
+            self.sync()
+            dw, da = self.same_runs("engine", a, b, ha, hb)
+            self.expect(pending_events(a) == pending_events(b),
+                        "engine: pending events differ")
+            self.expect(hb[-1].round >= 8, f"{hb[-1].round} rounds")
+            print(f"   engine (phase 12's, heap, cohort 8): cut at round 4 "
+                  f"({size} bytes, {pend} tasks in the cohort buffer), "
+                  f"restored and run beside the never-serialized engine to "
+                  f"round {hb[-1].round} ({time.perf_counter() - t0:.1f} s):"
+                  f" {len(hb)} entries, time, round and byte columns, "
+                  f"stats and pending events equal; largest |weight diff| "
+                  f"{dw:.3e} ({'bit-identical' if dw == 0 else 'not bit-identical'}"
+                  f"), max |accuracy diff| {da:.2e} (tolerance "
+                  f"{BATCHED_ACC_TOL}) [{self.card()}]")
+            self.kernels["topk_quant"].update(resume_engine_max_weight_diff=dw)
+            # (b) phase 20's fleet, cut at half its virtual time
+            cfg, w0s, fleet, hists = self._fleet_run
+            datas = [rt.data for rt in fleet.runtimes]
+            parts = [rt.partitions for rt in fleet.runtimes]
+            half = max(h[-1].time for h in hists) / 2
+            t0 = time.perf_counter()
+            a, b, path = self.resumed(
+                lambda: MultiTaskEngine(datas, parts, w0s, cfg,
+                                        device=self.dev),
+                dict(time_budget=half, max_rounds=5), tmp, "fleet.msgpack")
+            cut_rounds = [rt.server.t for rt in a.runtimes]
+            for j, rt in enumerate(a.runtimes):
+                got = load_sim_params(path, rt.server.w, task=j,
+                                      device="cpu")
+                self.expect(all(torch.equal(got[k], v.cpu())
+                                for k, v in rt.server.w.items()),
+                            f"load_sim_params of job {j} differs from its "
+                            f"weights at the cut")
+            has = a.run(time_budget=1e9, max_rounds=5)
+            hbs = b.run(time_budget=1e9, max_rounds=5)
+            self.sync()
+            diffs = [self.same_runs(f"fleet job {j}", ra, rb, ha, hb)
+                     for j, (ra, rb, ha, hb) in enumerate(zip(
+                         a.runtimes, b.runtimes, has, hbs))]
+            self.expect(pending_events(a) == pending_events(b),
+                        "fleet: pending events differ")
+            dw = max(d[0] for d in diffs)
+            print(f"   fleet (phase 20's): cut at virtual {half:.3f} s "
+                  f"(rounds {cut_rounds}, {os.path.getsize(path)} bytes), "
+                  f"restored and run beside the never-serialized fleet to "
+                  f"rounds {[h[-1].round for h in hbs]} "
+                  f"({time.perf_counter() - t0:.1f} s): columns, stats and "
+                  f"pending events equal; largest |weight diff| {dw:.3e} "
+                  f"({'bit-identical' if dw == 0 else 'not bit-identical'}),"
+                  f" max |accuracy diff| {max(d[1] for d in diffs):.2e}; "
+                  f"load_sim_params(task=j, device='cpu') equals each job's "
+                  f"weights at the cut, bit for bit [{self.card()}]")
+            self.kernels["topk_quant"].update(resume_fleet_max_weight_diff=dw)
+
+    # -- phase 22 -----------------------------------------------------------
+    def fleet_card_vs_cpu(self):
+        from repro_torch.fl.fleet import build_fleet
+        from repro_torch.utils.tree import to_numpy
+        n = 12
+        cfg = self.fleet_config(n)
+        cpu = build_fleet(cfg, n_train=640, n_test=320, device="cpu")
+        w_np = [to_numpy(rt.server.w) for rt in cpu.runtimes]
+        card = build_fleet(cfg, n_train=640, n_test=320, device=self.dev,
+                           init_params=w_np)
+        hc = card.run(time_budget=4.0)
+        hp = cpu.run(time_budget=4.0)
+        worst = 0.0
+        for j, (rc, rp, a_h, b_h) in enumerate(zip(
+                card.runtimes, cpu.runtimes, hc, hp)):
+            self.expect(len(a_h) == len(b_h), f"job {j}: {len(a_h)} vs "
+                        f"{len(b_h)} entries")
+            for x, y in zip(a_h, b_h):
+                for c in COLUMNS:
+                    self.expect(getattr(x, c) == getattr(y, c),
+                                f"job {j} {c}: {getattr(x, c)} vs "
+                                f"{getattr(y, c)}")
+            for f in STATS:
+                self.expect(getattr(rc.stats, f) == getattr(rp.stats, f),
+                            f"job {j} stats.{f}: {getattr(rc.stats, f)} vs "
+                            f"{getattr(rp.stats, f)}")
+            self.expect(bool((rc.stats.completed_per_device
+                              == rp.stats.completed_per_device).all()),
+                        f"job {j}: completed_per_device differs")
+            worst = max(worst, max(abs(x.accuracy - y.accuracy)
+                                   for x, y in zip(a_h, b_h)))
+        self.expect(worst <= ACC_TOL, f"accuracy differs by {worst} > "
+                    f"{ACC_TOL}")
+        self.expect(pending_events(card) == pending_events(cpu),
+                    "pending events differ")
+        print(f"   {n} devices, two jobs in wave mode: "
+              f"{[len(h) for h in hc]} entries, rounds "
+              f"{[h[-1].round for h in hc]}, job 0 {card.runtimes[0].stats.flushes} "
+              f"flushes; time, round and byte columns, stats and pending "
+              f"events equal; max |accuracy diff| {worst:.4f} (tolerance "
+              f"{ACC_TOL})")
+
+
+def pending_events(eng):
+    """The pending (time, kind, device, job) events of an engine or a
+    fleet, in order."""
+    if eng._events is not None:
+        return sorted((ev[0], ev[2], ev[3], ev[4] if len(ev) == 7 else 0)
+                      for ev in eng._events)
+    tab = eng.devices.events
+    live = [int(k) for k in (tab.time < float("inf")).nonzero()[0]]
+    return sorted((float(tab.time[k]), int(tab.kind[k]), k, int(tab.task[k]))
+                  for k in live)
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1667,6 +1973,11 @@ def main() -> int:
             s.wave_dispatch)
     s.phase("18. wave mode with local steps, 1,000 devices", s.wave_steps)
     s.phase("19. the card against the CPU, wave mode", s.wave_card_vs_cpu)
+    s.phase("20. the fleet at full width: CNN TEASQ and MLP fedasync, wave "
+            "mode", s.fleet_path)
+    s.phase("21. checkpoint and resume, engine and fleet",
+            s.checkpoint_resume)
+    s.phase("22. the card against the CPU, the fleet", s.fleet_card_vs_cpu)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failures:
         die("failed phases: " + "; ".join(s.failures))

@@ -183,7 +183,7 @@ ALIASES = {
 # the architectures whose config module the port has
 PORTED = ("mamba2_370m",)
 # where the others arrive
-_LATER = ("ROADMAP.md Queue A item 3 (the attention, MoE and hybrid "
+_LATER = ("ROADMAP.md Queue A item 2 (the attention, MoE and hybrid "
           "families and their configs)")
 
 

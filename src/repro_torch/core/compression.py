@@ -72,7 +72,7 @@ def quantize_levels(x: torch.Tensor, bits: int, key: Any = None
     if key is not None:
         raise NotImplementedError(
             "stochastic rounding in the in-graph quantizer draws from "
-            "jax.random; it arrives with ROADMAP.md Queue A item 6 (the "
+            "jax.random; it arrives with ROADMAP.md Queue A item 5 (the "
             "datacenter round, core/fed_step.py)")
     if bits >= FLOAT_BITS:
         return x, torch.tensor(1.0, dtype=torch.float32, device=x.device)

@@ -4,6 +4,8 @@ from repro_torch.core.codecs import (CODECS, Codec, DenseRefCodec,
 from repro_torch.fl.engine import (SCHEDULERS, BatchedEngine, ChannelMeter,
                                    CohortTrainer, DeviceRegistry, FLEngine,
                                    SerialTrainer)
+from repro_torch.fl.fleet import (ASSIGNERS, FleetConfig, MultiTaskEngine,
+                                  build_fleet)
 from repro_torch.fl.policies import (POLICIES, CodecPolicy, DispatchContext,
                                      make_policy)
 from repro_torch.fl.protocols import (METHODS, STRATEGIES, ProtocolStrategy,
@@ -19,6 +21,7 @@ __all__ = [
     "PackedBitstreamCodec", "ThresholdGraphCodec", "resolve_codec",
     "SCHEDULERS", "BatchedEngine", "ChannelMeter", "CohortTrainer",
     "DeviceRegistry", "FLEngine", "SerialTrainer",
+    "ASSIGNERS", "FleetConfig", "MultiTaskEngine", "build_fleet",
     "POLICIES", "CodecPolicy", "DispatchContext", "make_policy",
     "METHODS", "STRATEGIES", "ProtocolStrategy", "best_acc_within",
     "make_setup", "make_sim", "make_strategy", "profile_compression",

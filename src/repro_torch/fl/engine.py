@@ -69,7 +69,7 @@ from repro_torch.fl.simulator import (LogEntry, ScenarioConfig, SimConfig,
                                       tier_assignment)
 from repro_torch.fl.tasks import get_task
 from repro_torch.kernels.ops import threshold_channel_leaves
-from repro_torch.utils.tree import Params, resolve_device, unflatten
+from repro_torch.utils.tree import Params, leaves, resolve_device, unflatten
 
 
 # ----------------------------------------------------------------------
@@ -558,6 +558,41 @@ class CohortTrainer:
 
 
 # ----------------------------------------------------------------------
+# Checkpoint helpers (engine and fleet state_dict/load_state)
+# ----------------------------------------------------------------------
+def _pack_rng(rng: np.random.RandomState) -> List[Any]:
+    name, keys, pos, has_gauss, cached = rng.get_state()
+    return [name, np.asarray(keys), int(pos), int(has_gauss), float(cached)]
+
+
+def _load_rng(rng: np.random.RandomState, packed) -> None:
+    rng.set_state((packed[0], np.asarray(packed[1], np.uint32),
+                   int(packed[2]), int(packed[3]), float(packed[4])))
+
+
+def _pack_devices(dv: DeviceRegistry) -> Dict[str, np.ndarray]:
+    return {"down_rates": np.asarray(dv.down_rates),
+            "up_rates": np.asarray(dv.up_rates), "a_k": np.asarray(dv.a_k),
+            "phi_k": np.asarray(dv.phi_k), "alive": np.asarray(dv.alive),
+            "tier": np.asarray(dv.tier)}
+
+
+def _load_devices(dv: DeviceRegistry, d) -> None:
+    dv.down_rates[:] = np.asarray(d["down_rates"])
+    dv.up_rates[:] = np.asarray(d["up_rates"])
+    dv.a_k[:] = np.asarray(d["a_k"])
+    dv.phi_k[:] = np.asarray(d["phi_k"])
+    dv.alive[:] = np.asarray(d["alive"], bool)
+    dv.tier[:] = np.asarray(d["tier"])
+
+
+def _trees_equal(a: Params, b: Params) -> bool:
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+# ----------------------------------------------------------------------
 # The engine
 # ----------------------------------------------------------------------
 class FLEngine:
@@ -570,7 +605,16 @@ class FLEngine:
     def __init__(self, data: Dict[str, np.ndarray],
                  partitions: List[np.ndarray], w_init: Params,
                  cfg: SimConfig, strategy: Optional[Any] = None, *,
-                 device=None):
+                 device=None, rng: Optional[np.random.RandomState] = None,
+                 devices: Optional[DeviceRegistry] = None,
+                 scenario_rng: Optional[np.random.RandomState] = None):
+        """``rng`` / ``devices`` / ``scenario_rng`` let a multi-task fleet
+        (``repro_torch.fl.fleet.MultiTaskEngine``) share one seeded RNG
+        stream, one :class:`DeviceRegistry` and one scenario stream across
+        its per-task engines; with a registry injected the fleet owns the
+        tiers and the event loop, and this engine is a per-task runtime
+        whose handlers the fleet drives.  Standalone construction (the
+        default) draws the RNG in the JAX engine's order."""
         if cfg.handler_mode not in ("serial", "wave"):
             raise ValueError(
                 f"unknown handler_mode {cfg.handler_mode!r}; "
@@ -583,13 +627,16 @@ class FLEngine:
         self.device = resolve_device(device)
         self.data = data
         self.partitions = partitions
-        self.rng = np.random.RandomState(cfg.seed)
+        self.shared_fleet = devices is not None
+        self.rng = np.random.RandomState(cfg.seed) if rng is None else rng
         n = cfg.n_devices
         assert len(partitions) == n
         # per-device partition sizes, resident for the wave handlers
         self.part_sizes = np.asarray([len(p) for p in partitions], np.int64)
-        self.devices = DeviceRegistry(cfg, self.rng)
+        self.devices = (DeviceRegistry(cfg, self.rng) if devices is None
+                        else devices)
         w_init = {k: v.to(self.device) for k, v in w_init.items()}
+        self._names = sorted(w_init)     # the checkpoints' leaf order
         self.server = make_server(cfg.server, w_init, ServerConfig(
             n, cfg.c_fraction, cfg.gamma, cfg.alpha, cfg.a),
             shards=cfg.server_shards)
@@ -610,9 +657,11 @@ class FLEngine:
         self.strategy = strategy
 
         self.scenario: Optional[ScenarioConfig] = cfg.scenario
-        self.scenario_rng = np.random.RandomState(
+        self.scenario_rng = (np.random.RandomState(
             (cfg.seed + 0x5CE7A710) % (2 ** 31))
-        if self.scenario is not None and self.scenario.tiers:
+            if scenario_rng is None else scenario_rng)
+        if (not self.shared_fleet and self.scenario is not None
+                and self.scenario.tiers):
             self.devices.apply_tiers(self.scenario.tiers)
 
         self.trainer = (CohortTrainer(self, cfg.cohort_size,
@@ -829,6 +878,226 @@ class FLEngine:
                 self._log(now)
         self._sync_now = now
         return self.history
+
+    # -- checkpoint/resume -------------------------------------------------
+    # The state is a plain nested structure of dicts, lists, scalars and
+    # numpy arrays, in the JAX engine's layout (``checkpoint.io.save_blob``
+    # writes it, and either package's engine loads the other's).  A model
+    # is a flat leaf list in sorted-key order, copied to the host; loading
+    # puts it back on the engine's device under the key list of ``w_init``,
+    # so a restored engine is built over the same (data, partitions,
+    # w_init, cfg).  A ``PendingTask`` can be held by the cohort buffer and
+    # by an in-flight event at once: the registry ``reg = (id -> index,
+    # list)`` keeps that sharing across the round trip, which is what keeps
+    # a resumed run bit-identical.
+
+    def _pack_tree(self, tree: Params) -> List[np.ndarray]:
+        return [v.detach().to("cpu", copy=True).numpy()
+                for v in leaves(tree)]
+
+    def _unpack_tree(self, packed) -> Params:
+        return unflatten(self._names, [
+            torch.from_numpy(np.array(v)).to(self.device) for v in packed])
+
+    @staticmethod
+    def _intern(p: PendingTask, reg) -> int:
+        """``p``'s index in the registry, added on first sight."""
+        idx, pts = reg
+        i = idx.get(id(p))
+        if i is None:
+            i = idx[id(p)] = len(pts)
+            pts.append(p)
+        return i
+
+    def _pack_payload(self, payload: Any, reg) -> List[Any]:
+        if payload is None:
+            return ["none"]
+        if isinstance(payload, str):         # failure mode tag
+            return ["str", payload]
+        if isinstance(payload, PendingTask):
+            return ["pending", self._intern(payload, reg)]
+        w_up, n_k = payload                  # eager (w_local, n_k) tuple
+        return ["tree", self._pack_tree(w_up), int(n_k)]
+
+    def _unpack_payload(self, packed, pts: List[PendingTask]) -> Any:
+        tag = packed[0]
+        if tag == "none":
+            return None
+        if tag == "str":
+            return packed[1]
+        if tag == "pending":
+            return pts[int(packed[1])]
+        return self._unpack_tree(packed[1]), int(packed[2])
+
+    def _pack_pending(self, reg) -> List[Any]:
+        # bidx as int32, the JAX engine's dtype
+        return [[int(p.k), int(p.version), int(p.t0), float(p.p_s),
+                 int(p.p_q), int(p.n_k), np.asarray(p.bidx, np.int32),
+                 None if p.result is None
+                 else [self._pack_tree(p.result[0]), int(p.result[1])]]
+                for p in reg[1]]
+
+    def _unpack_pending(self, packed) -> List[PendingTask]:
+        pts = []
+        for k, version, t0, p_s, p_q, n_k, bidx, result in packed:
+            p = PendingTask(int(k), int(version), int(t0), float(p_s),
+                            int(p_q), int(n_k), np.asarray(bidx, np.int64))
+            if result is not None:
+                p.result = (self._unpack_tree(result[0]), int(result[1]))
+            pts.append(p)
+        return pts
+
+    def _core_state(self, reg) -> Dict[str, Any]:
+        """Per-task state: all but the pieces a fleet shares (the RNG
+        streams, the DeviceRegistry, the event queue), which it saves once."""
+        srv, ch, st = self.server, self.channel, self.stats
+        core = {
+            "server": {"w": self._pack_tree(srv.w), "t": int(srv.t),
+                       "active": int(srv.active),
+                       "cache": [[self._pack_tree(w), int(h), int(n)]
+                                 for w, h, n in srv.cache]},
+            "strategy": self.strategy.state_dict(),
+            "prev_local": [[int(k), self._pack_tree(w)]
+                           for k, w in self.prev_local.items()],
+            "channel": {"bytes_up": int(ch.bytes_up),
+                        "bytes_down": int(ch.bytes_down),
+                        "max_up": int(ch.max_up),
+                        "max_down": int(ch.max_down),
+                        "tier_up": [[int(t), int(b)]
+                                    for t, b in ch.tier_up.items()],
+                        "tier_down": [[int(t), int(b)]
+                                      for t, b in ch.tier_down.items()]},
+            "history": [[float(e.time), int(e.round), float(e.accuracy),
+                         int(e.bytes_up), int(e.bytes_down),
+                         int(e.max_model_bytes_up),
+                         int(e.max_model_bytes_down)]
+                        for e in self.history],
+            "stats": {"dispatches": int(st.dispatches),
+                      "completions": int(st.completions),
+                      "dropouts": int(st.dropouts),
+                      "transient_failures": int(st.transient_failures),
+                      "redispatched": int(st.redispatched),
+                      "flushes": int(st.flushes),
+                      "flushed_tasks": int(st.flushed_tasks),
+                      "completed_per_device":
+                      np.asarray(st.completed_per_device)},
+            "tail_logged": bool(self._tail_logged),
+            "sync_now": float(self._sync_now),
+            "trainer": None,
+        }
+        tr = self.trainer
+        if isinstance(tr, CohortTrainer):
+            core["trainer"] = {
+                "perm_rng": _pack_rng(tr.perm_rng),
+                "pending": [self._intern(p, reg) for p in tr.pending],
+                "versions": [self._pack_tree(v) for v in tr._versions],
+            }
+        return core
+
+    def _load_core(self, core, pts: List[PendingTask]) -> None:
+        srv = self.server
+        srv.w = self._unpack_tree(core["server"]["w"])
+        srv.t = int(core["server"]["t"])
+        srv.active = int(core["server"]["active"])
+        srv.cache = [(self._unpack_tree(w), int(h), int(n))
+                     for w, h, n in core["server"]["cache"]]
+        self.strategy.load_state(core["strategy"])
+        self.prev_local = {int(k): self._unpack_tree(w)
+                           for k, w in core["prev_local"]}
+        ch, c = self.channel, core["channel"]
+        ch.bytes_up = int(c["bytes_up"])
+        ch.bytes_down = int(c["bytes_down"])
+        ch.max_up = int(c["max_up"])
+        ch.max_down = int(c["max_down"])
+        ch.tier_up = {int(t): int(b) for t, b in c["tier_up"]}
+        ch.tier_down = {int(t): int(b) for t, b in c["tier_down"]}
+        self.history = [LogEntry(float(t), int(r), float(a), int(bu),
+                                 int(bd), int(mu), int(md))
+                        for t, r, a, bu, bd, mu, md in core["history"]]
+        s = core["stats"]
+        self.stats = EngineStats(
+            int(s["dispatches"]), int(s["completions"]), int(s["dropouts"]),
+            int(s["transient_failures"]), int(s["redispatched"]),
+            int(s["flushes"]), int(s["flushed_tasks"]),
+            completed_per_device=np.asarray(s["completed_per_device"],
+                                            np.int64))
+        self._tail_logged = bool(core["tail_logged"])
+        self._sync_now = float(core["sync_now"])
+        if core["trainer"] is not None:
+            tr = self.trainer
+            if not isinstance(tr, CohortTrainer):
+                raise ValueError("checkpoint holds a deferred cohort buffer "
+                                 "but this engine was built with "
+                                 "cohort_size=0")
+            _load_rng(tr.perm_rng, core["trainer"]["perm_rng"])
+            tr.pending = [pts[int(i)] for i in core["trainer"]["pending"]]
+            tr._versions = [self._unpack_tree(v)
+                            for v in core["trainer"]["versions"]]
+            tr._version_ids = {id(v): i for i, v in enumerate(tr._versions)}
+            # the restored global model is a fresh object: re-intern it if
+            # it was one of the buffered versions, so that later submits
+            # reuse the slot the uninterrupted run would
+            for i, v in enumerate(tr._versions):
+                if _trees_equal(v, srv.w):
+                    tr._version_ids[id(srv.w)] = i
+                    break
+
+    def _sched_state(self, reg) -> Dict[str, Any]:
+        events = None
+        if self._events is not None:
+            events = [[float(t), int(s), kind, int(k),
+                       self._pack_payload(p, reg), int(h)]
+                      for t, s, kind, k, p, h in self._events]
+        waiting = (None if self._waiting is None
+                   else [int(x) for x in list(self._waiting)])
+        return {"events": events, "waiting": waiting}
+
+    def _load_sched(self, st, pts: List[PendingTask]) -> None:
+        ev = st["events"]
+        # the saved list is the heap's own array, so it is still a heap
+        self._events = None if ev is None else [
+            (float(t), int(s), str(kind), int(k),
+             self._unpack_payload(p, pts), int(h))
+            for t, s, kind, k, p, h in ev]
+        w = st["waiting"]
+        self._waiting = None if w is None else [int(x) for x in w]
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The whole simulation state: the server and its cache, the codec
+        policy's estimates, the DeviceRegistry, the event queue or table,
+        every RNG stream, the history, stats and byte meters, and the
+        deferred cohort buffer.  ``checkpoint.io.save_blob`` writes it;
+        :meth:`load_state` on a fresh engine over the same (data,
+        partitions, w_init, cfg) restores it, and the resumed ``run`` is
+        bit-identical to one that never stopped."""
+        reg = ({}, [])
+        state = {
+            "version": 1,
+            "rng": _pack_rng(self.rng),
+            "scenario_rng": _pack_rng(self.scenario_rng),
+            "devices": _pack_devices(self.devices),
+            "started": bool(self._started),
+            "now": float(self._now),
+            "seq": int(self._seq),
+            "sched": self._sched_state(reg),
+            "core": self._core_state(reg),
+        }
+        state["pending"] = self._pack_pending(reg)
+        return state
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        if int(state["version"]) != 1:
+            raise ValueError(
+                f"unknown engine checkpoint version {state['version']!r}")
+        _load_rng(self.rng, state["rng"])
+        _load_rng(self.scenario_rng, state["scenario_rng"])
+        _load_devices(self.devices, state["devices"])
+        self._started = bool(state["started"])
+        self._now = float(state["now"])
+        self._seq = int(state["seq"])
+        pts = self._unpack_pending(state["pending"])
+        self._load_core(state["core"], pts)
+        self._load_sched(state["sched"], pts)
 
 
 # ----------------------------------------------------------------------
@@ -1259,6 +1528,42 @@ class BatchedEngine(FLEngine):
         if n_drain:
             drained = np.asarray(waiting.pop_many(n_drain), np.int64)
             push_wave(wts[:n_drain], drained, "request", None, 0)
+
+    # -- checkpoint/resume: the EventTable instead of the heap -------------
+    def _sched_state(self, reg) -> Dict[str, Any]:
+        tab = self.devices.events
+        table = None
+        if tab is not None:
+            live = np.flatnonzero(tab.time < np.inf).tolist()
+            table = {"slots": [[int(k), float(tab.time[k]), int(tab.seq[k]),
+                                int(tab.kind[k]), int(tab.h[k]),
+                                int(tab.task[k]),
+                                self._pack_payload(tab.payload[k], reg)]
+                               for k in live]}
+        waiting = (None if self._waiting is None
+                   else [int(x) for x in
+                         self._waiting._items[self._waiting._head:]])
+        return {"table": table, "waiting": waiting}
+
+    def _load_sched(self, st, pts: List[PendingTask]) -> None:
+        if st["table"] is not None:
+            tab = self.devices.event_table()
+            tab.time[:] = np.inf
+            tab.payload = [None] * len(tab.time)
+            for k, t, seq, kind, h, task, p in st["table"]["slots"]:
+                k = int(k)
+                tab.time[k] = float(t)
+                tab.seq[k] = int(seq)
+                tab.kind[k] = int(kind)
+                tab.h[k] = int(h)
+                tab.task[k] = int(task)
+                tab.payload[k] = self._unpack_payload(p, pts)
+        if st["waiting"] is None:
+            self._waiting = None
+        else:
+            w = _FifoWaiting()
+            w._items = [int(x) for x in st["waiting"]]
+            self._waiting = w
 
 
 # scheduler registry: SimConfig.scheduler -> engine class

@@ -139,7 +139,7 @@ class SimConfig:
     both schedulers (``"heap"``, ``"batched"``), both handler modes
     (``"serial"``; ``"wave"`` on the batched scheduler only), every codec
     policy, and ``server="single"`` (``"sharded"`` raises until ROADMAP.md
-    Queue A item 5 ports it), with the serial trainer or, at
+    Queue A item 4 ports it), with the serial trainer or, at
     ``cohort_size > 0``, the cohort trainer."""
 
     method: str = "teasq"

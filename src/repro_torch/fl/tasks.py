@@ -15,8 +15,9 @@ need to train one model family under any protocol:
 * ``make_data(n_train, n_test, seed)`` -- the synthetic numpy dataset;
 * ``forward`` / ``features`` -- logits and penultimate representation.
 
-The port registers the paper's ``fmnist_cnn``; the other families arrive
-with ROADMAP.md Queue A item 3 and raise until then.
+The port registers the paper's ``fmnist_cnn`` and the MLP ``fmnist_mlp``;
+the other families arrive with ROADMAP.md Queue A item 2 and raise until
+then.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 
 from repro_torch.data.synthetic import make_fmnist_like
+from repro_torch.models import mlp
 from repro_torch.models.cnn import (cnn_accuracy, cnn_cohort_loss,
                                     cnn_features, cnn_forward, cnn_loss,
                                     init_cnn)
@@ -33,8 +35,8 @@ from repro_torch.models.cnn import (cnn_accuracy, cnn_cohort_loss,
 __all__ = ["FLTask", "TASKS", "get_task", "register_task"]
 
 # where the not-yet-ported tasks arrive
-_LATER = {name: "ROADMAP.md Queue A item 3 (the other model families)"
-          for name in ("fmnist_mlp", "transformer_lm", "moe_lm", "ssm_lm")}
+_LATER = {name: "ROADMAP.md Queue A item 2 (the other model families)"
+          for name in ("transformer_lm", "moe_lm", "ssm_lm")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,4 +86,19 @@ register_task(FLTask(
     cohort_loss=cnn_cohort_loss,
     forward=cnn_forward,
     features=cnn_features,
+))
+
+
+# the smallest non-CNN family, on the same synthetic FMNIST images
+register_task(FLTask(
+    name="fmnist_mlp",
+    init_params=lambda generator, device=None: mlp.init_mlp(generator,
+                                                            device=device),
+    loss=mlp.mlp_loss,
+    eval_metric=mlp.mlp_accuracy,
+    make_data=lambda n_train, n_test, seed: make_fmnist_like(
+        n_train, n_test, seed=seed),
+    cohort_loss=mlp.mlp_cohort_loss,
+    forward=mlp.mlp_forward,
+    features=mlp.mlp_features,
 ))

@@ -15,7 +15,9 @@ longest sequence in the batch.
 
 Everything runs on the device of the parameters; ``main`` puts them on
 the card unless ``--device`` names another.  ``--from-sim`` (serving
-weights out of a simulator checkpoint) waits for the checkpoint slice.
+weights out of a simulator checkpoint) waits for the LM tasks: the port's
+``checkpoint.io.load_sim_params`` reads the weights, but only the image
+tasks train yet.
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ from repro_torch.models import transformer as T
 from repro_torch.utils.tree import resolve_device, tree_map
 
 # where serving from a simulator checkpoint arrives
-_FROM_SIM_LATER = ("serving from a simulator checkpoint needs "
-                   "checkpoint/io.py: ROADMAP.md Queue A item 2")
+_FROM_SIM_LATER = ("serving from a simulator checkpoint needs the LM tasks "
+                   "(transformer_lm, moe_lm, ssm_lm): ROADMAP.md Queue A "
+                   "item 2, then item 3 (the rest of launch/serve.py)")
 
 
 def _sync(t: torch.Tensor) -> None:

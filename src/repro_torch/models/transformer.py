@@ -30,7 +30,7 @@ from repro_torch.utils.tree import resolve_device, tree_map, tree_stack
 Tree = Dict[str, Any]
 
 # where the other families arrive
-_LATER = ("ROADMAP.md Queue A item 3 (the attention, MoE, hybrid, "
+_LATER = ("ROADMAP.md Queue A item 2 (the attention, MoE, hybrid, "
           "encoder-decoder and VLM families)")
 
 

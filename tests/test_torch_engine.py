@@ -164,7 +164,8 @@ def test_entry_points_need_a_device_without_cuda(setups, monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port imports in a fresh interpreter without
-    loading ``jax`` or ``repro``."""
+    loading ``jax``, ``repro`` or ``msgpack`` (the checkpoints carry a
+    msgpack codec of their own and need no msgpack package)."""
     code = (
         "import pkgutil, sys, repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -172,9 +173,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for n in names:\n"
         "    __import__(n)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'msgpack'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 35, names\n"
+        "assert len(names) >= 39, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -35,3 +35,31 @@ def test_chip_smoke_batched_phases_rehearse_on_cpu(capsys):
                if "on the run's own inputs" in ln]
     assert len(checked) == 2 and "zero_step:" in checked[0]
     assert not any(k.startswith("wave") for k in smoke.kernels["topk_quant"])
+
+
+def test_chip_smoke_fleet_phases_rehearse_on_cpu(capsys):
+    """chip_smoke.py's phases 20-22 on CPU tensors at a small fleet: the
+    fleet runs both jobs to 5 rounds and holds its largest channel input
+    against the plain version (the plain version twice here), then fails
+    its launch check, as it must off the card; the resume phase (engine
+    and fleet, through files) and the fleet's card-against-CPU phase (CPU
+    against CPU here) pass."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500,
+                             ssm_smoke=True)
+    for phase in (smoke.fleet_path, smoke.checkpoint_resume,
+                  smoke.fleet_card_vs_cpu):
+        smoke.phase(phase.__name__, phase)
+    assert smoke.failures == ["fleet_path"]
+    out = capsys.readouterr()
+    assert out.err.count("AssertionError: kernel B did not run inside "
+                         "MultiTaskEngine.run") == 1
+    assert "largest channel input" in out.out
+    assert out.out.count("bit-identical),") == 2    # engine and fleet resume
+    assert "load_sim_params(task=j, device='cpu') equals" in out.out
+    assert not any(k.startswith("fleet") for k in smoke.kernels["topk_quant"])
+    assert smoke.kernels["topk_quant"]["resume_engine_max_weight_diff"] == 0
