@@ -4,9 +4,9 @@
 Every architecture has a module ``repro_torch/configs/<id>.py`` exposing
 ``CONFIG`` (the full-scale config) and ``smoke()`` (a reduced variant of
 the same family used by the CPU tests).  Only the architectures whose
-model family the port runs have a module here; asking for any other one
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
-it.
+model family the port runs have a module here (all but the
+encoder-decoder and the VLM); asking for another one raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 """
 from __future__ import annotations
 
@@ -181,10 +181,12 @@ ALIASES = {
 }
 
 # the architectures whose config module the port has
-PORTED = ("mamba2_370m",)
+PORTED = ("mamba2_370m", "smollm_135m", "qwen3_1_7b", "granite_34b",
+          "phi3_5_moe_42b", "moonshot_v1_16b", "llama4_scout_17b",
+          "jamba_v0_1_52b", "fmnist_cnn")
 # where the others arrive
-_LATER = ("ROADMAP.md Queue A item 2 (the attention, MoE and hybrid "
-          "families and their configs)")
+_LATER = ("ROADMAP.md Queue A item 2 (the encoder-decoder and VLM "
+          "branches)")
 
 
 def _config_module(arch: str):

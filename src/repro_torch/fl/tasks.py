@@ -16,8 +16,7 @@ need to train one model family under any protocol:
 * ``forward`` / ``features`` -- logits and penultimate representation.
 
 The port registers the paper's ``fmnist_cnn`` and the MLP ``fmnist_mlp``;
-the other families arrive with ROADMAP.md Queue A item 2 and raise until
-then.
+the LM tasks arrive with ROADMAP.md Queue A item 2 and raise until then.
 """
 from __future__ import annotations
 
@@ -35,7 +34,7 @@ from repro_torch.models.cnn import (cnn_accuracy, cnn_cohort_loss,
 __all__ = ["FLTask", "TASKS", "get_task", "register_task"]
 
 # where the not-yet-ported tasks arrive
-_LATER = {name: "ROADMAP.md Queue A item 2 (the other model families)"
+_LATER = {name: "ROADMAP.md Queue A item 2 (lm_loss and the LM tasks)"
           for name in ("transformer_lm", "moe_lm", "ssm_lm")}
 
 

@@ -1,17 +1,18 @@
 """Serving front door: batched decode plus a continuous-batching loop.
 
-The JAX package's ``launch/serve.py`` in PyTorch, for the families the
-port runs (the SSM-only Mamba2 decoder).  Random weights for a registry
-config, one batched ``generate`` and a ``ContinuousBatcher`` run::
+The JAX package's ``launch/serve.py`` in PyTorch, for the decoder-only
+families (dense, MoE, SSM-only and hybrid).  Random weights for a
+registry config, one batched ``generate`` and a ``ContinuousBatcher``
+run::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --batch 4 --prompt-len 512 --gen 16
 
 ``ContinuousBatcher`` holds a fixed number of decode slots; each step it
 admits queued requests into free slots (prefill one row, splice its cache
-into the batched cache) and advances every active slot one token, so
-short requests free their slot for the queue instead of waiting for the
-longest sequence in the batch.
+into the batched cache) and advances every active slot one token at its
+own position, so short requests free their slot for the queue instead of
+waiting for the longest sequence in the batch.
 
 Everything runs on the device of the parameters; ``main`` puts them on
 the card unless ``--device`` names another.  ``--from-sim`` (serving
@@ -31,12 +32,18 @@ import torch
 
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.models import transformer as T
-from repro_torch.utils.tree import resolve_device, tree_map
+from repro_torch.utils.tree import resolve_device
 
 # where serving from a simulator checkpoint arrives
 _FROM_SIM_LATER = ("serving from a simulator checkpoint needs the LM tasks "
                    "(transformer_lm, moe_lm, ssm_lm): ROADMAP.md Queue A "
                    "item 2, then item 3 (the rest of launch/serve.py)")
+# the JAX package's batcher splices a hybrid's SSM leaves on the wrong
+# axis, so it serves a hybrid only at attn_every == 2
+_HYBRID_BATCHER = ("the continuous batcher takes a hybrid only at "
+                   "attn_every == 2, as the JAX package's does: "
+                   "ROADMAP.md Queue C (the reference's hybrid batcher "
+                   "fault); serve it through generate")
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -82,19 +89,24 @@ class ContinuousBatcher:
 
     ``submit`` queues a request; each ``step`` first admits queued
     requests into free slots (one-row prefill -> ``extend_cache`` -> splice
-    into slot ``s`` along axis 1 of the stacked cache) and then advances
-    every active slot one greedy token.  A slot frees the moment its
-    request reaches ``gen`` tokens, so the queue drains continuously
+    into slot ``s`` of the stacked cache) and then advances every active
+    slot one greedy token at its own position.  A slot frees the moment
+    its request reaches ``gen`` tokens, so the queue drains continuously
     instead of in lock-step batches.  Greedy only: the tokens of a request
     admitted mid-flight match a solo ``generate`` of the same prompt.
 
-    Decode is one batched ``decode_step`` over all slots: the SSM
-    recurrence does not read the position, so slots of different ages need
-    no per-row form and no position register.  The next-token register
-    lives on the device, so the loop never waits for it between steps."""
+    Decode is one batched ``decode_step`` over all slots with a ``(slots,)``
+    position register: set to the prompt length at admission and advanced
+    by one every step, for free slots too (their write slot is clamped to
+    the cache, as XLA clamps it in the JAX package).  The next-token and
+    position registers live on the device, so the loop never waits for
+    them between steps."""
 
     def __init__(self, params, cfg, slots: int = 4, cache_len: int = 64):
-        T.require_ssm(cfg)
+        T.require_ported(cfg)
+        if cfg.is_hybrid and cfg.attn_every != 2:
+            raise ValueError(f"{cfg.name} has attn_every = "
+                             f"{cfg.attn_every}: {_HYBRID_BATCHER}")
         self.params = params
         self.cfg = cfg
         self.slots = int(slots)
@@ -105,6 +117,8 @@ class ContinuousBatcher:
         self._rid = [-1] * self.slots            # request id per slot
         self._remaining = np.zeros(self.slots, np.int64)
         self._tok = torch.zeros((self.slots, 1), dtype=torch.int32,
+                                device=self.device)
+        self._pos = torch.zeros(self.slots, dtype=torch.int64,
                                 device=self.device)
         self._cache = None                       # built on first admission
         self._trace: List[torch.Tensor] = []     # per-step (slots, 1) tokens
@@ -168,27 +182,15 @@ class ContinuousBatcher:
                 done.append(rid)
                 continue
             if self._cache is None:
-                self._cache = tree_map(
-                    lambda a: torch.zeros(a.shape[:1] + (self.slots,)
-                                          + a.shape[2:], dtype=a.dtype,
-                                          device=a.device), one)
-            self._splice(self._cache, one, s)
-            # a new register tensor: the old one may be in the trace
+                self._cache = T.batched_cache_zeros(one, self.slots)
+            T.splice_cache_row(self._cache, one, s)
+            # a new token register: the old one may be in the trace
             self._tok = self._tok.clone()
             self._tok[s, 0] = first
+            self._pos[s] = prompt.size
             self._rid[s] = rid
             self._remaining[s] = gen - 1
         return done
-
-    @staticmethod
-    def _splice(cache, one, s: int) -> None:
-        """Write the one-row cache ``one`` into slot ``s`` (axis 1) of the
-        batched ``cache``, in place."""
-        for k, v in one.items():
-            if isinstance(v, dict):
-                ContinuousBatcher._splice(cache[k], v, s)
-            else:
-                cache[k][:, s] = v[:, 0].to(cache[k].dtype)
 
     @torch.no_grad()
     def step(self) -> List[int]:
@@ -197,11 +199,11 @@ class ContinuousBatcher:
         done = self._admit()
         if not any(r >= 0 for r in self._rid):
             return done
-        # the SSM decode reads no position: slots of any age share a step
-        logits, self._cache = T.decode_step(self.params, self._tok, 0,
-                                            self.cfg, self._cache)
+        logits, self._cache = T.decode_step(self.params, self._tok,
+                                            self._pos, self.cfg, self._cache)
         # a free slot decodes garbage harmlessly until it is re-admitted
         self._tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        self._pos = self._pos + 1
         self._trace.append(self._tok)
         k = self.steps
         self.steps += 1
@@ -246,7 +248,7 @@ def load_task_params(path: str, task_name: str, job: int = 0):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-370m")
+    ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--from-sim", default=None, metavar="CKPT",
                     help="serve trained weights from an engine/fleet "

@@ -27,24 +27,30 @@ from repro_torch.models.layers import rmsnorm, rmsnorm_init, uniform_init
 Params = Dict[str, torch.Tensor]
 
 
-def ssm_init(generator: torch.Generator, cfg, dtype=torch.float32) -> Params:
+def ssm_init(generator: torch.Generator, cfg, dtype=torch.float32,
+             lead=()) -> Params:
     """One Mamba2 mixer's parameters, with the JAX ``ssm_init``'s
-    distributions, drawn on ``generator``'s device."""
+    distributions, drawn on ``generator``'s device; ``lead`` stacks them
+    on leading axes (the layer-stacked layout)."""
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     w = cfg.ssm_conv_width
     dev = generator.device
+    lead = tuple(lead)
     d_in_proj = 2 * di + 2 * n + h          # z, x, B, C, dt
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32,
+                                     device=dev))
     return {
-        "in_proj": uniform_init(generator, (d, d_in_proj),
+        "in_proj": uniform_init(generator, lead + (d, d_in_proj),
                                 1.0 / math.sqrt(d), dtype),
-        "conv_w": uniform_init(generator, (w, di + 2 * n), 0.5, dtype),
-        "a_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32,
-                                          device=dev)),
-        "ssm_d": torch.ones((h,), dtype=torch.float32, device=dev),
-        "dt_bias": torch.zeros((h,), dtype=torch.float32, device=dev),
-        "out_proj": uniform_init(generator, (di, d), 1.0 / math.sqrt(di),
-                                 dtype),
-        "gate_norm": rmsnorm_init(di, dtype, dev),
+        "conv_w": uniform_init(generator, lead + (w, di + 2 * n), 0.5,
+                               dtype),
+        "a_log": a_log.expand(lead + (h,)).clone(),
+        "ssm_d": torch.ones(lead + (h,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros(lead + (h,), dtype=torch.float32,
+                               device=dev),
+        "out_proj": uniform_init(generator, lead + (di, d),
+                                 1.0 / math.sqrt(di), dtype),
+        "gate_norm": rmsnorm_init(di, dtype, dev, lead),
     }
 
 

@@ -1,5 +1,6 @@
-"""chip_smoke.py's phases of the batched scheduler (16-19), rehearsed on
-CPU tensors at a small fleet, so that the script's own checks do not rot
+"""chip_smoke.py's phases of the batched scheduler (16-19), the fleet
+(20-22) and LM serving (8 and 23-26), rehearsed on CPU tensors at a small
+fleet and the smoke configs, so that the script's own checks do not rot
 between card runs."""
 import os
 import sys
@@ -63,3 +64,32 @@ def test_chip_smoke_fleet_phases_rehearse_on_cpu(capsys):
     assert "load_sim_params(task=j, device='cpu') equals" in out.out
     assert not any(k.startswith("fleet") for k in smoke.kernels["topk_quant"])
     assert smoke.kernels["topk_quant"]["resume_engine_max_weight_diff"] == 0
+
+
+def test_chip_smoke_lm_phases_rehearse_on_cpu(capsys):
+    """chip_smoke.py's serving phases on CPU tensors at the smoke configs:
+    Mamba2 through the shared serving window (8), kernel C at the Jamba
+    config's prefill shape (23), Qwen3 through the batcher and a prompt
+    past the flash threshold against the plain branch (24), the Jamba
+    group through generate (25; no kernel launch off the card), and the
+    seven decoder-only families card against CPU (26; CPU against CPU
+    here).  All pass: each launch check expects 0 launches off the card."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500,
+                             ssm_smoke=True)
+    for phase in (smoke.serve_ssm, smoke.kernel_c_jamba, smoke.serve_qwen,
+                  smoke.serve_jamba, smoke.lm_card_vs_cpu):
+        smoke.phase(phase.__name__, phase)
+    assert smoke.failures == []
+    out = capsys.readouterr().out
+    assert out.count("batcher tokens equal solo generate on 8 of 8") == 2
+    assert "prefill of 1 x 2304 tokens: flash branch" in out
+    assert "batch row tokens equal solo generate on 4 of 4" in out
+    assert "N=16), b and c in f32 and bf16" in out
+    assert out.count("greedy tokens of 2 x 8 equal") == 7
+    assert smoke.lm["jamba"]["launches"]["ssd_scan"] == 0
+    assert smoke.lm["qwen"]["flash_vs_plain"] <= chip_smoke.FLASH_TOL
