@@ -3,10 +3,7 @@
 
 Every architecture has a module ``repro_torch/configs/<id>.py`` exposing
 ``CONFIG`` (the full-scale config) and ``smoke()`` (a reduced variant of
-the same family used by the CPU tests).  Only the architectures whose
-model family the port runs have a module here (all but the
-encoder-decoder and the VLM); asking for another one raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+the same family used by the CPU tests).
 """
 from __future__ import annotations
 
@@ -180,22 +177,14 @@ ALIASES = {
     "fmnist-cnn": "fmnist_cnn",
 }
 
-# the architectures whose config module the port has
-PORTED = ("mamba2_370m", "smollm_135m", "qwen3_1_7b", "granite_34b",
-          "phi3_5_moe_42b", "moonshot_v1_16b", "llama4_scout_17b",
-          "jamba_v0_1_52b", "fmnist_cnn")
-# where the others arrive
-_LATER = ("ROADMAP.md Queue A item 2 (the encoder-decoder and VLM "
-          "branches)")
+# every architecture has its config module in the port
+PORTED = ARCH_IDS
 
 
 def _config_module(arch: str):
     arch = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet: {_LATER}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

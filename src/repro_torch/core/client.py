@@ -11,7 +11,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import unflatten
+from repro_torch.utils.tree import leaves, paths, unflatten
 
 Params = Dict[str, torch.Tensor]
 
@@ -27,8 +27,8 @@ def local_update(w_global: Params, data_x: torch.Tensor,
     the JAX package's, one per epoch.  Data and parameters stay on their
     device; the only host sync is the one ``.item()`` on the last loss.
     """
-    names = sorted(w_global)
-    anchor = [w_global[k].detach() for k in names]
+    names = paths(w_global)
+    anchor = [v.detach() for v in leaves(w_global)]
     params = [a.clone() for a in anchor]
     n = len(data_y)
     steps = 0

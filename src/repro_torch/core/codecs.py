@@ -43,16 +43,16 @@ from repro_torch.core.compression import (FLOAT_BITS, compress_pytree,
                                           sparsify_quantize_threshold,
                                           topk_count)
 from repro_torch.kernels.bitpack import BitReader, pack_segments
-from repro_torch.utils.tree import Params, leaves, unflatten
+from repro_torch.utils.tree import Params, leaves, paths, tree_map, unflatten
 
 
 def _device_of(tree: Params) -> torch.device:
-    return next(iter(tree.values())).device
+    return leaves(tree)[0].device
 
 
 def _to_device(tree: Dict[str, np.ndarray], device) -> Params:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in tree.items()}
+    return tree_map(lambda v: torch.from_numpy(
+        np.ascontiguousarray(v)).to(device), tree)
 
 
 @dataclasses.dataclass
@@ -162,8 +162,8 @@ class ThresholdGraphCodec(Codec):
     def apply_tree(self, tree: Params) -> Params:
         """The operator on every leaf of a dict, each leaf one row."""
         from repro_torch.kernels.ops import threshold_channel_leaves
-        names = sorted(tree)
-        xs = [tree[k] for k in names]
+        names = paths(tree)
+        xs = leaves(tree)
         out = threshold_channel_leaves([x.reshape(1, -1) for x in xs],
                                        self.p_s, self.p_q, self.iters)
         return unflatten(names, [o.view(x.shape) for o, x in zip(out, xs)])
@@ -215,8 +215,8 @@ class PackedBitstreamCodec(Codec):
 
     # -- encode -----------------------------------------------------------
     def encode(self, tree, *, rng=None) -> Wire:
-        names = sorted(tree)
-        xs = [tree[k] for k in names]
+        names = paths(tree)
+        xs = leaves(tree)
         meta = (names, [tuple(x.shape) for x in xs], xs[0].device)
         if self.fused and rng is None:
             from repro_torch.kernels.ops import fused_wire_encode

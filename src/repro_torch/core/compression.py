@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import leaves
+from repro_torch.utils.tree import leaves, paths, unflatten
 
 FLOAT_BITS = 32
 
@@ -235,24 +235,34 @@ def tensor_wire_bits(c: Dict[str, Any]) -> int:
     return _wire_bits(c["n"], len(c["values"]), c["p_q"])
 
 
+def _is_compressed(node: Dict[str, Any]) -> bool:
+    """A ``compress_tensor`` record (a leaf of a compressed tree)."""
+    return "indices" in node and "p_q" in node
+
+
 def compress_pytree(tree: Dict[str, Any], p_s: float, p_q: int,
                     rng: Optional[np.random.RandomState] = None
                     ) -> Dict[str, Dict[str, Any]]:
-    """``compress_tensor`` per leaf, in sorted-key order (the order in
-    which stochastic rounding draws from ``rng``)."""
-    return {k: compress_tensor(tree[k], p_s, p_q, rng) for k in sorted(tree)}
+    """``compress_tensor`` per leaf, in ``jax.tree.leaves`` order (the
+    order in which stochastic rounding draws from ``rng``)."""
+    names = paths(tree)
+    return unflatten(names, [compress_tensor(x, p_s, p_q, rng)
+                             for x in leaves(tree)])
 
 
 def decompress_pytree(ctree: Dict[str, Dict[str, Any]]
                       ) -> Dict[str, np.ndarray]:
-    return {k: decompress_tensor(ctree[k]) for k in sorted(ctree)}
+    return unflatten(paths(ctree, _is_compressed),
+                     [decompress_tensor(c)
+                      for c in leaves(ctree, _is_compressed)])
 
 
 def pytree_wire_bytes(ctree: Dict[str, Dict[str, Any]]) -> int:
     """Transmitted size of a compressed pytree: one bit-level concatenated
     stream across tensors, rounded up to whole bytes -- exactly what
     ``PackedBitstreamCodec`` emits."""
-    return (sum(tensor_wire_bits(c) for c in leaves(ctree)) + 7) // 8
+    return (sum(tensor_wire_bits(c)
+                for c in leaves(ctree, _is_compressed)) + 7) // 8
 
 
 def pytree_dense_bytes(tree: Any) -> int:

@@ -14,7 +14,7 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.utils.tree import Params
+from repro_torch.utils.tree import Params, leaves, tree_map
 
 
 def staleness_weight(staleness, a: float = 0.5) -> torch.Tensor:
@@ -35,7 +35,7 @@ def _cache_weights(w_global: Params, cache: List[Tuple[Params, int, int]],
                    t: int, alpha: float, a: float):
     """The Eqs. 6-7 weights of the cached entries and alpha^t (Eqs. 8-9),
     on the parameters' device."""
-    device = next(iter(w_global.values())).device
+    device = leaves(w_global)[0].device
     staleness = torch.tensor([t - c[1] for c in cache], dtype=torch.float32,
                              device=device)
     n_samples = torch.tensor([c[2] for c in cache], dtype=torch.float32,
@@ -50,11 +50,12 @@ def aggregate_cache(w_global: Params, cache: List[Tuple[Params, int, int]],
     u = sum_c wts_c w_c (Eq. 7), alpha^t = alpha S(mean staleness)
     (Eqs. 8-9), w^{t+1} = alpha^t u + (1 - alpha^t) w^t (Eq. 10)."""
     wts, a_t = _cache_weights(w_global, cache, t, alpha, a)
-    out = {}
-    for k in sorted(w_global):
-        u = sum(wts[i] * c[0][k] for i, c in enumerate(cache))
-        out[k] = a_t * u + (1.0 - a_t) * w_global[k]
-    return out
+
+    def merge(w, *cached):
+        u = sum(wts[i] * c for i, c in enumerate(cached))
+        return a_t * u + (1.0 - a_t) * w
+
+    return tree_map(merge, w_global, *(c[0] for c in cache))
 
 
 def aggregate_cache_stacked(w_global: Params,
@@ -65,9 +66,9 @@ def aggregate_cache_stacked(w_global: Params,
     ``tensordot`` per leaf, then the Eq. 10 merge.  It is
     ``aggregate_cache`` up to the order of the K-term sums."""
     wts, a_t = _cache_weights(w_global, cache, t, alpha, a)
-    out = {}
-    for k in sorted(w_global):
-        stacked = torch.stack([c[0][k] for c in cache]).float()
-        u = torch.tensordot(wts, stacked, dims=1)
-        out[k] = a_t * u + (1.0 - a_t) * w_global[k]
-    return out
+
+    def merge(w, *cached):
+        u = torch.tensordot(wts, torch.stack(cached).float(), dims=1)
+        return a_t * u + (1.0 - a_t) * w
+
+    return tree_map(merge, w_global, *(c[0] for c in cache))

@@ -69,7 +69,8 @@ from repro_torch.fl.simulator import (LogEntry, ScenarioConfig, SimConfig,
                                       tier_assignment)
 from repro_torch.fl.tasks import get_task
 from repro_torch.kernels.ops import threshold_channel_leaves
-from repro_torch.utils.tree import Params, leaves, resolve_device, unflatten
+from repro_torch.utils.tree import (Params, leaves, paths, resolve_device,
+                                    tree_map, tree_stack, unflatten)
 
 
 # ----------------------------------------------------------------------
@@ -364,9 +365,8 @@ class PendingTask:
 def _channel(tree: Params, p_s: float, p_q: int, iters: int) -> Params:
     """The threshold channel on every row of a stacked dict: kernel B's
     channel form on the card, its plain version on the CPU."""
-    names = sorted(tree)
-    return unflatten(names, threshold_channel_leaves(
-        [tree[k] for k in names], p_s, p_q, iters))
+    return unflatten(paths(tree), threshold_channel_leaves(
+        leaves(tree), p_s, p_q, iters))
 
 
 def _cohort_round(w_versions: Params, vidx: torch.Tensor, xs: torch.Tensor,
@@ -378,12 +378,12 @@ def _cohort_round(w_versions: Params, vidx: torch.Tensor, xs: torch.Tensor,
     the channel up.  Shapes: w_versions leaves (V, ...); vidx/didx (C,);
     xs/ys (N, n_max, ...); bidx (T, C, bs); valid (T, C), 0 on the steps a
     device does not take.  Returns the (C, ...) uploads."""
-    w_recv = {k: v[vidx] for k, v in _channel(w_versions, p_s, p_q,
-                                               iters).items()}
+    w_recv = tree_map(lambda v: v[vidx], _channel(w_versions, p_s, p_q,
+                                                   iters))
     xd, yd = xs[didx], ys[didx]
     rows = torch.arange(xd.shape[0], device=xd.device)[:, None]
-    names = sorted(w_recv)
-    anchor = [w_recv[k] for k in names]
+    names = paths(w_recv)
+    anchor = leaves(w_recv)
     params = [a.clone() for a in anchor]
     for t in range(bidx.shape[0]):
         idx = bidx[t]                                   # (C, bs)
@@ -501,8 +501,7 @@ class CohortTrainer:
             groups.setdefault((t.p_s, t.p_q), []).append(t)
         # the V distinct versions only: the JAX package pads V to a power
         # of two with copies of the first, which change no result
-        w_versions = {k: torch.stack([w[k] for w in versions])
-                      for k in versions[0]}
+        w_versions = tree_stack(versions)
         for (p_s, p_q), group in groups.items():
             self._flush_group(group, w_versions, p_s, p_q)
         self.engine.stats.flushes += 1
@@ -527,8 +526,8 @@ class CohortTrainer:
             for t in group:
                 w = per_version.get(t.version)
                 if w is None:
-                    w = per_version[t.version] = {
-                        k: a[t.version] for k, a in w_up_v.items()}
+                    w = per_version[t.version] = tree_map(
+                        lambda a: a[t.version], w_up_v)
                 t.result = (w, t.n_k)
             return
         bs = cfg.batch_size
@@ -554,7 +553,7 @@ class CohortTrainer:
             p_s=p_s, p_q=p_q, iters=self.channel_iters)
         # per-task results: views of the stacked output, on the device
         for i, t in enumerate(group):
-            t.result = ({k: a[i] for k, a in w_up.items()}, t.n_k)
+            t.result = (tree_map(lambda a: a[i], w_up), t.n_k)
 
 
 # ----------------------------------------------------------------------
@@ -635,8 +634,8 @@ class FLEngine:
         self.part_sizes = np.asarray([len(p) for p in partitions], np.int64)
         self.devices = (DeviceRegistry(cfg, self.rng) if devices is None
                         else devices)
-        w_init = {k: v.to(self.device) for k, v in w_init.items()}
-        self._names = sorted(w_init)     # the checkpoints' leaf order
+        w_init = tree_map(lambda v: v.to(self.device), w_init)
+        self._names = paths(w_init)      # the checkpoints' leaf order
         self.server = make_server(cfg.server, w_init, ServerConfig(
             n, cfg.c_fraction, cfg.gamma, cfg.alpha, cfg.a),
             shards=cfg.server_shards)
@@ -883,8 +882,9 @@ class FLEngine:
     # The state is a plain nested structure of dicts, lists, scalars and
     # numpy arrays, in the JAX engine's layout (``checkpoint.io.save_blob``
     # writes it, and either package's engine loads the other's).  A model
-    # is a flat leaf list in sorted-key order, copied to the host; loading
-    # puts it back on the engine's device under the key list of ``w_init``,
+    # is a flat leaf list in ``jax.tree.leaves`` order (sorted keys at
+    # every level), copied to the host; loading puts it back on the
+    # engine's device under the key paths of ``w_init``,
     # so a restored engine is built over the same (data, partitions,
     # w_init, cfg).  A ``PendingTask`` can be held by the cohort buffer and
     # by an in-flight event at once: the registry ``reg = (id -> index,

@@ -33,7 +33,8 @@ from repro_torch.data.synthetic import partition_iid, partition_noniid_classes
 from repro_torch.fl.policies import make_policy
 from repro_torch.fl.simulator import LogEntry, SimConfig, moon_local_train
 from repro_torch.fl.tasks import get_task
-from repro_torch.utils.tree import Params, from_numpy, resolve_device
+from repro_torch.utils.tree import (Params, from_numpy, leaves,
+                                    resolve_device, tree_map)
 
 METHODS = ("fedavg", "fedasync", "tea", "teas", "teaq", "teastatic",
            "teasq", "moon", "port", "asofed")
@@ -177,8 +178,8 @@ class FedAsyncStrategy(ProtocolStrategy):
         srv = engine.server
         srv.active = max(0, srv.active - 1)
         a_t = self.mixing_weight(srv.t - h)
-        srv.w = {n: a_t * w_local[n] + (1 - a_t) * srv.w[n]
-                 for n in sorted(srv.w)}
+        srv.w = tree_map(lambda l, g: a_t * l + (1 - a_t) * g, w_local,
+                         srv.w)
         srv.t += 1
         return True
 
@@ -208,8 +209,9 @@ class FedAvgStrategy(ProtocolStrategy):
     def aggregate(self, engine, updates, weights):
         wts = np.asarray(weights, np.float32)
         wts /= wts.sum()
-        return {n: sum(float(w) * u[n] for w, u in zip(wts, updates))
-                for n in sorted(updates[0])}
+        return tree_map(
+            lambda *us: sum(float(w) * u for w, u in zip(wts, us)),
+            *updates)
 
 
 class MoonStrategy(FedAvgStrategy):
@@ -313,7 +315,7 @@ def profile_compression(w: Params, data: Dict[str, np.ndarray],
     through the codec seam with stochastic rounding.  Returns ``(si, qi,
     trace)``, or with ``tiers`` ``(tier_points, traces)`` (see the JAX
     package's ``profile_compression``)."""
-    device = next(iter(w.values())).device
+    device = leaves(w)[0].device
     xs = torch.from_numpy(data["x_test"][:2000]).to(device)
     ys = torch.from_numpy(data["y_test"][:2000]).to(device)
     metric = get_task(task).eval_metric

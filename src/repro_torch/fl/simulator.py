@@ -17,12 +17,12 @@ import torch.nn.functional as F
 
 from repro_torch.core.dynamic import CompressionSchedule
 from repro_torch.core.latency import ComputeConfig, WirelessConfig
-from repro_torch.utils.tree import unflatten
+from repro_torch.utils.tree import Path, leaves, paths, unflatten
 
 Params = Dict[str, torch.Tensor]
 
 
-def _moon_sgd_step(params: List[torch.Tensor], names: List[str],
+def _moon_sgd_step(params: List[torch.Tensor], names: List[Path],
                    images: torch.Tensor, labels: torch.Tensor,
                    z_glob: torch.Tensor, z_prev: torch.Tensor, lr: float,
                    mu_con: float, tau: float, forward_fn: Callable,
@@ -63,8 +63,8 @@ def moon_local_train(w_glob: Params, prev: Params, x: torch.Tensor,
         raise ValueError(
             "MOON's model-contrastive term needs the task's forward and "
             "features heads (FLTask.forward / FLTask.features)")
-    names = sorted(w_glob)
-    params = [w_glob[k].detach() for k in names]
+    names = paths(w_glob)
+    params = [v.detach() for v in leaves(w_glob)]
     n = len(y)
     for _ in range(epochs):
         order = torch.from_numpy(rng.permutation(n)).to(x.device)

@@ -13,10 +13,13 @@ need to train one model family under any protocol:
   leading device axis C; inputs (C, B, ...)); ``None`` when the family has
   no cohort form;
 * ``make_data(n_train, n_test, seed)`` -- the synthetic numpy dataset;
-* ``forward`` / ``features`` -- logits and penultimate representation.
+* ``forward`` / ``features`` -- logits and penultimate representation;
+* ``model_cfg`` -- the transformer ``ModelConfig`` behind an LM task (the
+  FL -> serve bridge rebuilds and serves its weights), else ``None``.
 
-The port registers the paper's ``fmnist_cnn`` and the MLP ``fmnist_mlp``;
-the LM tasks arrive with ROADMAP.md Queue A item 2 and raise until then.
+The port registers the paper's ``fmnist_cnn``, the MLP ``fmnist_mlp`` and
+the three LM families of the transformer stack (``transformer_lm``,
+``moe_lm``, ``ssm_lm``) on a synthetic copy-structured token stream.
 """
 from __future__ import annotations
 
@@ -24,18 +27,17 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.data.synthetic import make_fmnist_like
 from repro_torch.models import mlp
+from repro_torch.models import transformer as tfm
 from repro_torch.models.cnn import (cnn_accuracy, cnn_cohort_loss,
                                     cnn_features, cnn_forward, cnn_loss,
                                     init_cnn)
 
 __all__ = ["FLTask", "TASKS", "get_task", "register_task"]
-
-# where the not-yet-ported tasks arrive
-_LATER = {name: "ROADMAP.md Queue A item 2 (lm_loss and the LM tasks)"
-          for name in ("transformer_lm", "moe_lm", "ssm_lm")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +52,7 @@ class FLTask:
     cohort_loss: Optional[Callable[..., Any]] = None
     forward: Optional[Callable[..., Any]] = None
     features: Optional[Callable[..., Any]] = None
+    model_cfg: Optional[ModelConfig] = None
 
 
 TASKS: Dict[str, FLTask] = {}
@@ -63,10 +66,6 @@ def register_task(task: FLTask) -> FLTask:
 
 
 def get_task(name: str) -> FLTask:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"task {name!r} is not ported yet: it arrives with "
-            f"{_LATER[name]}")
     try:
         return TASKS[name]
     except KeyError:
@@ -101,3 +100,101 @@ register_task(FLTask(
     forward=mlp.mlp_forward,
     features=mlp.mlp_features,
 ))
+
+
+# ----------------------------------------------------------------------
+# The LM families of the transformer stack: next-token cross entropy on
+# a copy-structured token stream (``batch["images"]`` carries the (B, S)
+# tokens), next-token top-1 as the round metric.  ``ssm_chunk`` divides
+# LM_SEQ_LEN, so ssm_lm's local steps run kernel C, forward and gradient.
+# ----------------------------------------------------------------------
+LM_SEQ_LEN = 16
+
+_LM_CFG = ModelConfig(
+    name="fl-transformer-lm", family="dense",
+    n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64, vocab=64,
+    tie_embeddings=True)
+
+_MOE_LM_CFG = ModelConfig(
+    name="fl-moe-lm", family="moe",
+    n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64, vocab=64,
+    tie_embeddings=True, n_experts=4, moe_top_k=2)
+
+_SSM_LM_CFG = ModelConfig(
+    name="fl-ssm-lm", family="ssm",
+    n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64, vocab=64,
+    tie_embeddings=True, ssm_state=8, ssm_head_dim=16, ssm_expand=2,
+    ssm_conv_width=4, ssm_chunk=8)   # chunk 8 divides LM_SEQ_LEN=16
+
+assert _MOE_LM_CFG.is_moe and _SSM_LM_CFG.is_ssm_only
+assert LM_SEQ_LEN % _SSM_LM_CFG.ssm_chunk == 0
+
+
+def make_lm_data(n_train: int, n_test: int, seed: int = 0,
+                 seq: int = LM_SEQ_LEN) -> Dict[str, np.ndarray]:
+    """Copy-structured token stream (second half = first half shifted by
+    1) so next-token loss genuinely decreases.  ``y_*`` are 10-way
+    pseudo-labels bucketed from the leading token: the LM objective
+    ignores them, but the label-skew partitioners need classes.  Host
+    numpy, bit-equal to the JAX package's."""
+    vocab = _LM_CFG.vocab
+
+    def gen(n, rs):
+        toks = rs.randint(0, vocab, size=(n, seq)).astype(np.int32)
+        half = seq // 2
+        toks[:, half:half * 2] = (toks[:, :half] + 1) % vocab
+        return toks, (toks[:, 0] * 10 // vocab).astype(np.int32)
+
+    xtr, ytr = gen(n_train, np.random.RandomState(seed))
+    xte, yte = gen(n_test, np.random.RandomState(seed + 1))
+    return {"x_train": xtr, "y_train": ytr, "x_test": xte, "y_test": yte}
+
+
+def _lm_family_fns(cfg: ModelConfig):
+    """The LM task functions closed over ``cfg``: (init_params, loss,
+    eval_metric, cohort_loss, forward)."""
+
+    def init_params(generator, device=None):
+        return tfm.init_model(cfg, generator, device)
+
+    def forward(params, tokens):
+        logits, _ = tfm.forward(params, {"tokens": tokens}, cfg)
+        return logits
+
+    def loss(params, batch):
+        return tfm.lm_loss(params, {"tokens": batch["images"]}, cfg)[0]
+
+    def eval_metric(params, tokens, labels):
+        del labels
+        logits = forward(params, tokens)
+        return (logits[:, :-1].argmax(-1) == tokens[:, 1:]).to(
+            torch.float32).mean()
+
+    def cohort_loss(params, tokens, labels):
+        """Per-device weights (leaves (C, ...)) on (C, B, S) tokens: the
+        mean over the cohort of each device's loss, ``torch.func.vmap``
+        of the serial loss (kernel C's vmap rule folds the cohort into
+        its cells: one launch per layer for the whole cohort)."""
+        del labels
+        per_device = torch.func.vmap(
+            lambda p, t: tfm.lm_loss(p, {"tokens": t}, cfg)[0])(params,
+                                                               tokens)
+        return per_device.mean()
+
+    return init_params, loss, eval_metric, cohort_loss, forward
+
+
+for _name, _cfg in (("transformer_lm", _LM_CFG), ("moe_lm", _MOE_LM_CFG),
+                    ("ssm_lm", _SSM_LM_CFG)):
+    _init, _loss, _metric, _cohort, _fwd = _lm_family_fns(_cfg)
+    register_task(FLTask(
+        name=_name,
+        init_params=_init,
+        loss=_loss,
+        eval_metric=_metric,
+        make_data=make_lm_data,
+        cohort_loss=_cohort,
+        forward=_fwd,
+        features=None,            # no contrastive head: MOON is CNN/MLP-only
+        model_cfg=_cfg,
+    ))

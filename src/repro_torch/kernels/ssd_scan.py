@@ -21,7 +21,9 @@ other and of the JAX package's ``ssd_intra_chunk``:
   plus one CTA per head group for ``S`` and ``a``.
 
 :func:`ssd_intra_chunk` picks by device: the kernel for CUDA tensors (a
-build or launch failure raises), the plain version for CPU tensors.
+build or launch failure raises), the plain version for CPU tensors.  Its
+gradient is the plain version's, recomputed in the backward pass
+(:class:`SSDIntraChunk`); there is no backward kernel.
 
 Cells are ordered (batch, chunk, head).  ``b`` and ``c`` are the same for
 every head of a (batch, chunk), so they come once per (batch, chunk):
@@ -112,22 +114,76 @@ def _ssd_intra_chunk_cuda(xb, b, c, cum, heads):
     return y, s, a
 
 
-def ssd_intra_chunk(xb: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-                    cum: torch.Tensor, heads: int = 1
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched intra-chunk SSD (shapes as in :func:`ssd_intra_chunk_plain`).
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    _check(xb, b, c, cum, heads)
-    devices = {t.device for t in (xb, b, c, cum)}
-    if len(devices) != 1:
-        raise ValueError(f"ssd_intra_chunk inputs on several devices: "
-                         f"{devices}")
+def _intra_chunk(xb, b, c, cum, heads):
+    """Kernel C on CUDA tensors, the plain version on CPU tensors."""
     if xb.device.type == "cuda":
         return _ssd_intra_chunk_cuda(xb.contiguous(), b.contiguous(),
                                      c.contiguous(), cum.contiguous(), heads)
     if xb.device.type == "cpu":
         return ssd_intra_chunk_plain(xb, b, c, cum, heads)
     raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, not {xb.device}")
+
+
+class SSDIntraChunk(torch.autograd.Function):
+    """Kernel C with a gradient.
+
+    Forward: :func:`_intra_chunk` (the kernel on the card).  Backward: the
+    vector-Jacobian product of :func:`ssd_intra_chunk_plain`, recomputed
+    from the saved inputs; the JAX package has no backward kernel either
+    (it trains by differentiating its plain ``ssd_chunked``).  Under
+    ``torch.func.vmap`` the mapped axis is folded into the cell axis G:
+    cells are independent, so one launch serves every mapped copy."""
+
+    @staticmethod
+    def forward(xb, b, c, cum, heads):
+        return _intra_chunk(xb, b, c, cum, heads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        xb, b, c, cum, heads = inputs
+        ctx.save_for_backward(xb, b, c, cum)
+        ctx.heads = heads
+
+    @staticmethod
+    def backward(ctx, gy, gs, ga):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wrt = [t for t in ins if t.requires_grad]
+        grads = iter(())
+        if wrt:
+            with torch.enable_grad():
+                outs = ssd_intra_chunk_plain(*ins, ctx.heads)
+                grads = iter(torch.autograd.grad(outs, wrt, (gy, gs, ga)))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in ins) + (None,)
+
+    @staticmethod
+    def vmap(info, in_dims, xb, b, c, cum, heads):
+        n = info.batch_size
+
+        def fold(t, d):
+            t = t.expand((n,) + t.shape) if d is None else t.movedim(d, 0)
+            return t.reshape((-1,) + t.shape[2:])
+
+        out = SSDIntraChunk.apply(*(fold(t, d) for t, d in
+                                    zip((xb, b, c, cum), in_dims)), heads)
+        return (tuple(o.reshape((n, -1) + o.shape[1:]) for o in out),
+                (0, 0, 0))
+
+
+def ssd_intra_chunk(xb: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    cum: torch.Tensor, heads: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched intra-chunk SSD (shapes as in :func:`ssd_intra_chunk_plain`).
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors;
+    differentiable (:class:`SSDIntraChunk`) and ``torch.func.vmap``-able
+    on both."""
+    _check(xb, b, c, cum, heads)
+    devices = {t.device for t in (xb, b, c, cum)}
+    if len(devices) != 1:
+        raise ValueError(f"ssd_intra_chunk inputs on several devices: "
+                         f"{devices}")
+    return SSDIntraChunk.apply(xb, b, c, cum, heads)
 
 
 def ssd_chunked_kernel(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

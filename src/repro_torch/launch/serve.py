@@ -1,24 +1,32 @@
 """Serving front door: batched decode plus a continuous-batching loop.
 
-The JAX package's ``launch/serve.py`` in PyTorch, for the decoder-only
-families (dense, MoE, SSM-only and hybrid).  Random weights for a
-registry config, one batched ``generate`` and a ``ContinuousBatcher``
-run::
+The JAX package's ``launch/serve.py`` in PyTorch.  Two entry styles:
+
+* architecture demo -- random weights for a registry config, one batched
+  ``generate`` and a ``ContinuousBatcher`` run::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --batch 4 --prompt-len 512 --gen 16
+
+* FL -> serve bridge -- the trained global model of an LM task out of a
+  simulator checkpoint blob (``FLEngine.state_dict()`` or a fleet's,
+  written with ``checkpoint.io.save_blob``), served through the
+  continuous-batching loop::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --from-sim ckpt \
+        --task transformer_lm --job 0 --batch 4 --requests 8 --gen 16
 
 ``ContinuousBatcher`` holds a fixed number of decode slots; each step it
 admits queued requests into free slots (prefill one row, splice its cache
 into the batched cache) and advances every active slot one token at its
 own position, so short requests free their slot for the queue instead of
-waiting for the longest sequence in the batch.
+waiting for the longest sequence in the batch.  It serves the
+decoder-only families; an encoder-decoder (frames) or a VLM (patches)
+goes through ``generate`` or ``prefill``/``decode_step``, as in the JAX
+package, whose batcher prefills tokens alone.
 
 Everything runs on the device of the parameters; ``main`` puts them on
-the card unless ``--device`` names another.  ``--from-sim`` (serving
-weights out of a simulator checkpoint) waits for the LM tasks: the port's
-``checkpoint.io.load_sim_params`` reads the weights, but only the image
-tasks train yet.
+the card unless ``--device`` names another.
 """
 from __future__ import annotations
 
@@ -34,10 +42,6 @@ from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.models import transformer as T
 from repro_torch.utils.tree import resolve_device
 
-# where serving from a simulator checkpoint arrives
-_FROM_SIM_LATER = ("serving from a simulator checkpoint needs the LM tasks "
-                   "(transformer_lm, moe_lm, ssm_lm): ROADMAP.md Queue A "
-                   "item 2, then item 3 (the rest of launch/serve.py)")
 # the JAX package's batcher splices a hybrid's SSM leaves on the wrong
 # axis, so it serves a hybrid only at attn_every == 2
 _HYBRID_BATCHER = ("the continuous batcher takes a hybrid only at "
@@ -53,15 +57,27 @@ def _sync(t: torch.Tensor) -> None:
 
 
 @torch.no_grad()
-def generate(params, cfg, prompts, gen: int, temperature: float = 0.0,
+def generate(params, cfg, prompts, gen: int, frames=None,
+             temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """prompts: (B, S) -> (B, S+gen) int32, greedy or, with ``temperature``
     > 0, sampled with ``generator`` (a ``torch.Generator`` on the
-    parameters' device).  Runs on the parameters' device."""
+    parameters' device).  An encoder-decoder takes its ``frames`` (B,
+    enc_seq, d_model) and prefills through ``encdec_prefill``.  Runs on
+    the parameters' device."""
+    if cfg.n_patches:
+        raise ValueError(f"{cfg.name} ({cfg.family}) prefills its patches "
+                         "with the prompt: drive prefill and decode_step")
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     B, S = prompts.shape
-    logits, cache = T.prefill(params, {"tokens": prompts}, cfg)
+    if cfg.is_encoder_decoder:
+        logits, cache = T.encdec_prefill(
+            params, {"tokens": prompts,
+                     "frames": torch.as_tensor(frames, device=dev)},
+            cfg, cache_len=S)
+    else:
+        logits, cache = T.prefill(params, {"tokens": prompts}, cfg)
     cache = T.extend_cache(cache, S + gen)
 
     def sample(lg):
@@ -103,7 +119,13 @@ class ContinuousBatcher:
     them between steps."""
 
     def __init__(self, params, cfg, slots: int = 4, cache_len: int = 64):
-        T.require_ported(cfg)
+        if cfg.is_encoder_decoder or cfg.n_patches:
+            raise ValueError(
+                f"{cfg.name} ({cfg.family}) needs "
+                f"{'frames' if cfg.is_encoder_decoder else 'patches'} with "
+                "its prompt, and the continuous batcher prefills tokens "
+                "alone, as the JAX package's does: serve it through "
+                "generate (encoder-decoder) or prefill/decode_step (VLM)")
         if cfg.is_hybrid and cfg.attn_every != 2:
             raise ValueError(f"{cfg.name} has attn_every = "
                              f"{cfg.attn_every}: {_HYBRID_BATCHER}")
@@ -240,19 +262,64 @@ class ContinuousBatcher:
 # FL -> serve bridge
 # ----------------------------------------------------------------------
 
-def load_task_params(path: str, task_name: str, job: int = 0):
-    """Rebuild a trained LM's weights from a simulator checkpoint blob
-    (not ported yet: raises)."""
-    raise NotImplementedError(_FROM_SIM_LATER)
+def load_task_params(path: str, task_name: str, job: int = 0, device=None):
+    """Rebuild a trained LM's weights from a simulator checkpoint blob.
+
+    Resolves ``task_name`` in the FL task registry for the weight tree's
+    structure (``task.init_params`` on a seeded generator) and its
+    transformer ``ModelConfig``, then reads the global weights out of the
+    engine or fleet blob at ``path`` (``job`` picks the job inside a fleet
+    blob), on ``device`` (the card unless another is named).  Returns
+    ``(params, cfg)``."""
+    from repro_torch.checkpoint.io import load_sim_params
+    from repro_torch.fl.tasks import get_task
+    task = get_task(task_name)
+    if task.model_cfg is None:
+        raise ValueError(f"task {task_name!r} is not an LM family -- "
+                         "it has no transformer ModelConfig to serve")
+    like = task.init_params(torch.Generator().manual_seed(0), "cpu")
+    params = load_sim_params(path, like, task=job, device=device)
+    return params, task.model_cfg
 
 
-def main(argv=None) -> None:
+def serve_from_sim(path: str, task_name: str, job: int, batch: int,
+                   requests: int, prompt_len: int, gen: int,
+                   seed: int = 0, device=None
+                   ) -> Tuple[List[List[int]], List[float]]:
+    """Serve ``requests`` seeded prompts from the weights of job ``job``
+    of the checkpoint at ``path`` through the continuous batcher; prints
+    the throughput and returns (tokens, latencies) per request."""
+    params, cfg = load_task_params(path, task_name, job, device)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab, prompt_len).astype(np.int32)
+               for _ in range(requests)]
+    cb = ContinuousBatcher(params, cfg, slots=batch,
+                           cache_len=prompt_len + gen)
+    t0 = time.perf_counter()
+    outs, lat = cb.run(prompts, gen)
+    dt = time.perf_counter() - t0
+    toks = sum(len(o) for o in outs)
+    print(f"[serve] {cfg.name} from {path} on {params['embed'].device}: "
+          f"{requests} requests x gen={gen} over {batch} slots in "
+          f"{dt:.2f}s ({toks / dt:.1f} tok/s, p50 latency "
+          f"{np.percentile(lat, 50) * 1e3:.0f} ms)")
+    print("[serve] first request tokens:", outs[0])
+    return outs, lat
+
+
+def main(argv=None) -> Optional[Tuple[List[List[int]], List[float]]]:
+    """The command line (see the module docstring); with ``--from-sim``
+    returns what :func:`serve_from_sim` returns."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--from-sim", default=None, metavar="CKPT",
                     help="serve trained weights from an engine/fleet "
-                         "checkpoint blob (not ported yet)")
+                         "checkpoint blob instead of random --arch init")
+    ap.add_argument("--task", default="transformer_lm",
+                    help="FL task registry name behind --from-sim")
+    ap.add_argument("--job", type=int, default=0,
+                    help="task slot inside a fleet checkpoint blob")
     ap.add_argument("--requests", type=int, default=8,
                     help="workload size for the continuous-batching loop")
     ap.add_argument("--batch", type=int, default=4,
@@ -266,18 +333,25 @@ def main(argv=None) -> None:
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    if args.from_sim is not None:
-        raise NotImplementedError(_FROM_SIM_LATER)
-
     dev = resolve_device(args.device)
+    if args.from_sim is not None:
+        return serve_from_sim(args.from_sim, args.task, args.job,
+                              args.batch, args.requests, args.prompt_len,
+                              args.gen, args.seed, dev)
+
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_model(cfg, gen, dev)
     rng = np.random.RandomState(args.seed)
     prompts = rng.randint(0, cfg.vocab, (args.batch, args.prompt_len))
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.from_numpy(rng.randn(
+            args.batch, cfg.enc_seq, cfg.d_model).astype(np.float32))
 
     t0 = time.perf_counter()
-    seqs = generate(params, cfg, prompts, args.gen, args.temperature, gen)
+    seqs = generate(params, cfg, prompts, args.gen, frames,
+                    args.temperature, gen)
     _sync(seqs)
     dt = time.perf_counter() - t0
     print(f"[serve] {cfg.name} on {dev}: batch={args.batch} "
@@ -285,7 +359,7 @@ def main(argv=None) -> None:
           f"({args.batch * args.gen / dt:.1f} tok/s)")
     print("[serve] first sequence tail:", seqs[0, -8:].tolist())
 
-    if args.requests > 0:
+    if args.requests > 0 and not (cfg.is_encoder_decoder or cfg.n_patches):
         reqs = [rng.randint(0, cfg.vocab, args.prompt_len)
                 for _ in range(args.requests)]
         cb = ContinuousBatcher(params, cfg, slots=args.batch,
@@ -299,6 +373,7 @@ def main(argv=None) -> None:
               f"({toks / dt:.1f} tok/s, p50 latency "
               f"{np.percentile(lat, 50) * 1e3:.0f} ms)")
         print("[serve] first request tokens:", outs[0])
+    return None
 
 
 if __name__ == "__main__":

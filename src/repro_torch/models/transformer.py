@@ -1,5 +1,5 @@
 """Architecture assembly, in PyTorch: the dense, MoE, SSM-only and hybrid
-(Jamba) decoders.
+(Jamba) decoders, the encoder-decoder (Whisper) and the VLM (InternVL2).
 
 The JAX package's ``models/transformer.py`` with its public entry points
 and layouts, so ``utils.tree.from_numpy`` carries the JAX weights across
@@ -13,24 +13,32 @@ unchanged.  Parameters are the same nested dict:
   ``(n_groups, attn_every - 1, ...)``, ``norm1``/``norm2`` ``(n_groups,
   attn_every, d)``, ``ffn`` ``(n_groups, n_dense, ...)``, ``moe``
   ``(n_groups, n_moe, ...)``, and position ``p`` takes ``ffn[p //
-  moe_every]`` or ``moe[p // moe_every]``.
+  moe_every]`` or ``moe[p // moe_every]``;
+* the encoder-decoder has ``enc_layers`` (``n_enc_layers``: ``norm1``,
+  ``attn``, ``norm_ffn``, ``ffn``), ``layers`` (``n_layers``: those and
+  ``norm_x``, ``xattn``, the cross attention) and ``enc_norm``;
+* the VLM adds ``patch_proj`` (d_model, d_model): ``batch["patches"] @
+  patch_proj`` goes before the token embeddings, and logits come only at
+  the text positions.
 
 The layers run in a Python loop over the leading axis (the JAX package's
 ``lax.scan``).  Decode caches are stacked the same way: attention
-``{"k", "v"}`` of ``(L, B, S, G, hd)``, SSM ``{"state", "conv"}`` of
-``(L, B, ...)``, the hybrid ``{"attn": (n_groups, B, S, G, hd), "ssm":
-(n_groups, attn_every - 1, B, ...)}``.
+``{"k", "v"}`` of ``(L, B, S, G, hd)`` (the encoder-decoder's also
+``{"xk", "xv"}`` of ``(L, B, enc_seq, G, hd)``), SSM ``{"state",
+"conv"}`` of ``(L, B, ...)``, the hybrid ``{"attn": (n_groups, B, S, G,
+hd), "ssm": (n_groups, attn_every - 1, B, ...)}``.
 
   init_model(cfg, generator, device)      -> params
   forward(params, batch, cfg)             -> (logits, aux)
+  lm_loss(params, batch, cfg)             -> (loss, {"nll", "lb"})
   prefill(params, batch, cfg)             -> (last-position logits, cache)
+  encdec_prefill(params, batch, cfg, cache_len) -> the same, enc-dec
   extend_cache(cache, target_len)         -> cache with room to decode
   init_decode_state(cfg, batch, cache_len, dtype, device) -> cache
   decode_step(params, tokens, pos, cfg, cache) -> (logits, new cache)
 
 ``decode_step`` takes ``pos`` as an int or as a ``(B,)`` tensor of
-per-row positions.  The encoder-decoder and VLM branches raise
-``NotImplementedError`` until their slice.
+per-row positions.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -48,20 +57,6 @@ from repro_torch.models.layers import (dense_init, embed_init, embed_lookup,
 from repro_torch.utils.tree import resolve_device, tree_map, tree_stack
 
 Tree = Dict[str, Any]
-
-# where the other branches arrive
-_LATER = ("ROADMAP.md Queue A item 2 (the encoder-decoder and VLM "
-          "branches)")
-
-
-def require_ported(cfg) -> None:
-    """Raise unless ``cfg`` is a decoder-only family the port runs."""
-    if cfg.is_encoder_decoder or cfg.n_patches:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported yet: the port runs "
-            f"the decoder-only families (dense, MoE, SSM, hybrid); the "
-            f"others arrive with {_LATER}")
-
 
 def _layer(tree: Tree, i: int) -> Tree:
     return tree_map(lambda a: a[i], tree)
@@ -117,6 +112,22 @@ def _init_hybrid_groups(g: torch.Generator, cfg, dtype) -> Tree:
     return p
 
 
+def _init_encdec_layers(g: torch.Generator, cfg, dtype, n: int,
+                        decoder: bool) -> Tree:
+    """``n`` encoder (or decoder, with the cross attention) layers,
+    stacked."""
+    lead = (n,)
+    p: Tree = {"norm1": rmsnorm_init(cfg.d_model, dtype, g.device, lead),
+               "attn": attn.attn_init(g, cfg, dtype, lead=lead),
+               "norm_ffn": rmsnorm_init(cfg.d_model, dtype, g.device, lead),
+               "ffn": mlp_init(g, cfg.d_model, cfg.d_ff, dtype,
+                               gated=cfg.gated_mlp, lead=lead)}
+    if decoder:
+        p["norm_x"] = rmsnorm_init(cfg.d_model, dtype, g.device, lead)
+        p["xattn"] = attn.attn_init(g, cfg, dtype, cross=True, lead=lead)
+    return p
+
+
 def init_model(cfg, generator: torch.Generator, device=None,
                dtype=torch.float32) -> Tree:
     """Random weights with the JAX ``init_model``'s distributions and
@@ -124,7 +135,6 @@ def init_model(cfg, generator: torch.Generator, device=None,
     in one draw), returned on ``device`` (the card unless ``device`` names
     another)."""
     device = resolve_device(device)
-    require_ported(cfg)
     params: Tree = {
         "embed": embed_init(generator, cfg.vocab, cfg.d_model, dtype),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, generator.device),
@@ -132,8 +142,19 @@ def init_model(cfg, generator: torch.Generator, device=None,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
                                        dtype)
-    params["layers"] = (_init_hybrid_groups if cfg.is_hybrid else
-                        _init_uniform_layers)(generator, cfg, dtype)
+    if cfg.is_encoder_decoder:
+        params["enc_layers"] = _init_encdec_layers(
+            generator, cfg, dtype, cfg.n_enc_layers, decoder=False)
+        params["layers"] = _init_encdec_layers(generator, cfg, dtype,
+                                               cfg.n_layers, decoder=True)
+        params["enc_norm"] = rmsnorm_init(cfg.d_model, dtype,
+                                          generator.device)
+    else:
+        params["layers"] = (_init_hybrid_groups if cfg.is_hybrid else
+                            _init_uniform_layers)(generator, cfg, dtype)
+    if cfg.n_patches:  # VLM: projector from (stubbed) vision embeddings
+        params["patch_proj"] = dense_init(generator, cfg.d_model,
+                                          cfg.d_model, dtype)
     return tree_map(lambda a: a.to(device), params)
 
 
@@ -218,38 +239,164 @@ def _run_stack(params, x, cfg, positions, window=0, collect_cache=False):
     return x, aux, (tree_stack(caches) if collect_cache else None)
 
 
+def _positions(x):
+    return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+
+
+def _encoder(params, frames, cfg):
+    """frames: (B, S_enc, D) stubbed audio embeddings -> the normed
+    encoder output (non-causal self attention)."""
+    x = frames
+    pos = _positions(x)
+    for i in range(cfg.n_enc_layers):
+        lp = _layer(params["enc_layers"], i)
+        h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        x = x + attn.attn_forward(lp["attn"], h, pos, cfg, causal=False)
+        x = x + mlp(lp["ffn"], rmsnorm(lp["norm_ffn"], x, cfg.norm_eps))
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _decoder_encdec(params, tokens, enc_out, cfg, collect_cache=False):
+    """The decoder over ``tokens`` with cross attention to ``enc_out``;
+    with ``collect_cache`` also the stacked {k, v, xk, xv} cache."""
+    x = embed_lookup(params["embed"], tokens)
+    pos = _positions(x)
+    caches = []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        o = attn.attn_forward(lp["attn"], rmsnorm(lp["norm1"], x,
+                                                  cfg.norm_eps),
+                              pos, cfg, causal=True,
+                              return_kv=collect_cache)
+        if collect_cache:
+            o, kv = o
+        x = x + o
+        o = attn.attn_forward(lp["xattn"], rmsnorm(lp["norm_x"], x,
+                                                   cfg.norm_eps),
+                              pos, cfg, enc_out=enc_out,
+                              return_kv=collect_cache)
+        if collect_cache:
+            o, xkv = o
+            caches.append({"k": kv["k"], "v": kv["v"], "xk": xkv["k"],
+                           "xv": xkv["v"]})
+        x = x + o
+        x = x + mlp(lp["ffn"], rmsnorm(lp["norm_ffn"], x, cfg.norm_eps))
+    return x, (tree_stack(caches) if collect_cache else None)
+
+
 def _head(params, x, cfg):
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_head(x, params["embed"] if cfg.tie_embeddings else None,
                    params.get("lm_head"))
 
 
-def _embed(params, tokens):
-    x = embed_lookup(params["embed"], tokens)
-    positions = torch.arange(x.shape[1], device=x.device).expand(
-        x.shape[:2])
-    return x, positions
+def _embed(params, batch, cfg):
+    """Token embeddings, after the projected patch embeddings for a VLM,
+    and their positions."""
+    x = embed_lookup(params["embed"], batch["tokens"])
+    if cfg.n_patches:
+        pe = batch["patches"] @ params["patch_proj"]
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
+    return x, _positions(x)
+
+
+def _trunk(params, batch, cfg, window=0):
+    """The stack's last hidden states at the text positions (before the
+    final norm), and the load-balance loss."""
+    tokens = batch["tokens"]
+    if cfg.is_encoder_decoder:
+        enc_out = _encoder(params, batch["frames"], cfg)
+        x, _ = _decoder_encdec(params, tokens, enc_out, cfg)
+        return x, torch.zeros((), device=x.device)
+    x, positions = _embed(params, batch, cfg)
+    x, aux, _ = _run_stack(params, x, cfg, positions, window)
+    if cfg.n_patches:
+        x = x[:, -tokens.shape[1]:, :]
+    return x, aux
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg, window: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: {tokens (B, S)} -> (logits (B, S, vocab) f32, aux)."""
-    require_ported(cfg)
-    x, positions = _embed(params, batch["tokens"])
-    x, aux, _ = _run_stack(params, x, cfg, positions, window)
+    """batch: {tokens (B, S), and patches (B, n_patches, D) for a VLM or
+    frames (B, enc_seq, D) for an encoder-decoder} -> (logits (B, S,
+    vocab) f32 over the token positions, aux)."""
+    x, aux = _trunk(params, batch, cfg, window)
     return _head(params, x, cfg), aux
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg, window: int = 0
             ) -> Tuple[torch.Tensor, Tree]:
-    """Serve-side prefill: process the full prompt, return (last-position
-    logits (B, 1, vocab), layer-stacked KV/SSM cache) ready for
-    ``decode_step``."""
-    require_ported(cfg)
-    x, positions = _embed(params, batch["tokens"])
+    """Serve-side prefill: process the full prompt (after the patches, for
+    a VLM), return (last-position logits (B, 1, vocab), layer-stacked
+    KV/SSM cache) ready for ``decode_step``."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("use encdec_prefill for encoder-decoder")
+    x, positions = _embed(params, batch, cfg)
     x, _, cache = _run_stack(params, x, cfg, positions, window,
                              collect_cache=True)
     return _head(params, x[:, -1:, :], cfg), cache
+
+
+def encdec_prefill(params, batch: Dict[str, torch.Tensor], cfg,
+                   cache_len: int) -> Tuple[torch.Tensor, Tree]:
+    """Whisper-style prefill: run the encoder, fill the cross KV caches,
+    then teacher-force the prompt tokens through the decoder collecting
+    the self KV.  ``cache_len`` is unused, as in the JAX package
+    (``extend_cache`` makes the room to decode)."""
+    del cache_len
+    enc_out = _encoder(params, batch["frames"], cfg)
+    x, cache = _decoder_encdec(params, batch["tokens"], enc_out, cfg,
+                               collect_cache=True)
+    return _head(params, x[:, -1:, :], cfg), cache
+
+
+def _chunk_nll(xc, tc, vc, table, head):
+    """The summed next-token NLL of one sequence chunk (its logits are
+    recomputed in the backward pass)."""
+    logp = torch.log_softmax(lm_head(xc, table, head), dim=-1)
+    nll = -torch.gather(logp, -1, tc[..., None].long())[..., 0]
+    return torch.sum(nll * vc)
+
+
+def lm_loss(params, batch, cfg, window: int = 0, lb_weight: float = 0.01,
+            loss_chunk: int = 0
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy plus ``lb_weight`` times MoE's
+    load-balance loss.
+
+    ``loss_chunk > 0`` computes it in sequence chunks without holding the
+    full (B, S, vocab) f32 logits: each chunk's head and softmax are
+    recomputed in the backward pass (``torch.utils.checkpoint``), the
+    chunks padded to whole ones and the padding masked out."""
+    tokens = batch["tokens"]
+    if loss_chunk <= 0:
+        logits, aux = forward(params, batch, cfg, window)
+        logp = torch.log_softmax(logits[:, :-1, :], dim=-1)
+        nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+        loss = nll.mean()
+        return loss + lb_weight * aux, {"nll": loss, "lb": aux}
+
+    x, aux = _trunk(params, batch, cfg, window)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else None
+    head = params.get("lm_head")
+    B, S = tokens.shape
+    Sm1 = S - 1
+    C = min(loss_chunk, Sm1)
+    n_chunks = -(-Sm1 // C)
+    pad = n_chunks * C - Sm1
+    xs = F.pad(x[:, :-1, :], (0, 0, 0, pad)).reshape(B, n_chunks, C, -1)
+    tg = F.pad(tokens[:, 1:], (0, pad)).reshape(B, n_chunks, C)
+    valid = F.pad(torch.ones((B, Sm1), dtype=torch.float32,
+                             device=x.device), (0, pad)).reshape(
+                                 B, n_chunks, C)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        total = total + checkpoint(_chunk_nll, xs[:, i], tg[:, i],
+                                   valid[:, i], table, head,
+                                   use_reentrant=False)
+    loss = total / (B * Sm1)
+    return loss + lb_weight * aux, {"nll": loss, "lb": aux}
 
 
 def extend_cache(cache: Tree, target_len: int) -> Tree:
@@ -280,8 +427,12 @@ def init_decode_state(cfg, batch: int, cache_len: int,
     """Stacked (over layers / groups) zero cache.  ``rolling`` needs no
     other layout: the same buffer serves as the circular window."""
     del rolling
-    require_ported(cfg)
     device = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        return _stack_tree(attn.init_cache(cfg, batch, cache_len, dtype,
+                                           cross_len=cfg.enc_seq,
+                                           quantized=quantized,
+                                           device=device), cfg.n_layers)
     if cfg.is_ssm_only:
         return _stack_tree(ssm_mod.init_ssm_cache(cfg, batch, dtype, device),
                            cfg.n_layers)
@@ -329,7 +480,6 @@ def decode_step(params, tokens: torch.Tensor, pos, cfg, cache: Tree, *,
     """tokens: (B, 1) int; ``pos`` the absolute position, an int or a
     (B,) tensor with each row's own (the SSM recurrence does not read
     it).  Returns (logits (B, 1, vocab), a new cache)."""
-    require_ported(cfg)
     x = embed_lookup(params["embed"], tokens)
     if not cfg.is_ssm_only:
         pos = attn.row_positions(pos, x.shape[0], x.device)
@@ -352,7 +502,15 @@ def decode_step(params, tokens: torch.Tensor, pos, cfg, cache: Tree, *,
             new.append({"attn": ac, "ssm": tree_stack(ssm_new)})
             continue
         h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-        if cfg.is_ssm_only:
+        if cfg.is_encoder_decoder:
+            o, lc2 = attn.attn_decode(lp["attn"], h, pos, cfg, lc,
+                                      rolling=rolling)
+            x = x + o
+            o, _ = attn.attn_decode(lp["xattn"], rmsnorm(
+                lp["norm_x"], x, cfg.norm_eps), pos, cfg, lc, cross=True)
+            x = x + o
+            x = x + mlp(lp["ffn"], rmsnorm(lp["norm_ffn"], x, cfg.norm_eps))
+        elif cfg.is_ssm_only:
             o, lc2 = ssm_mod.ssm_decode(lp["ssm"], h, cfg, lc)
             x = x + o
         else:

@@ -1,37 +1,79 @@
 """Parameter dicts as pytrees, and the device rule of the port's entry points.
 
 The JAX package carries model parameters as pytrees of arrays; the port
-carries them as plain ``dict[str, Tensor]``.  ``jax.tree.leaves`` orders a
-dict's leaves by sorted key, and both the packed stream layout and the
-stochastic-rounding draw order depend on that order, so every walk over a
-parameter dict in the port goes through :func:`leaves` / :func:`unflatten`.
+carries them as plain dicts of tensors, nested for the LM families
+(``{"embed", "final_norm": {"scale"}, "layers": {"attn": {...}, ...}}``)
+and flat for the CNN and the MLP.  ``jax.tree.leaves`` orders a dict's
+leaves by sorted key at every level, and the packed stream layout, the
+stochastic-rounding draw order and a checkpoint's leaf list all follow
+that order, so every walk over a parameter dict in the port goes through
+:func:`leaves`, :func:`paths` / :func:`unflatten` or :func:`tree_map`.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
+Path = Tuple[str, ...]              # a leaf's keys, outermost first
 
 
-def leaves(tree: Any) -> List[Any]:
-    """The leaves of a dict in sorted-key order; a list or tuple passes
-    through as the leaf list it already is."""
+def _is_node(v: Any, is_leaf: Optional[Callable]) -> bool:
+    return isinstance(v, dict) and not (is_leaf is not None and is_leaf(v))
+
+
+def paths(tree: Dict[str, Any], is_leaf: Optional[Callable] = None
+          ) -> List[Path]:
+    """The key paths of a nested dict's leaves in ``jax.tree.leaves``
+    order: sorted keys at every level, depth first.  A flat dict's paths
+    are its sorted keys, each a 1-tuple.  A dict for which ``is_leaf``
+    is true counts as a leaf."""
+    out: List[Path] = []
+    for k in sorted(tree):
+        v = tree[k]
+        if _is_node(v, is_leaf):
+            out.extend((k,) + p for p in paths(v, is_leaf))
+        else:
+            out.append((k,))
+    return out
+
+
+def leaves(tree: Any, is_leaf: Optional[Callable] = None) -> List[Any]:
+    """The leaves of a (nested) dict in ``jax.tree.leaves`` order (sorted
+    keys at every level; a dict for which ``is_leaf`` is true is a leaf);
+    a list or tuple passes through as the leaf list it already is."""
     if isinstance(tree, dict):
-        return [tree[k] for k in sorted(tree)]
+        out: List[Any] = []
+        for k in sorted(tree):
+            v = tree[k]
+            out.extend(leaves(v, is_leaf) if _is_node(v, is_leaf)
+                       else (v,))
+        return out
     return list(tree)
 
 
-def unflatten(names: Sequence[str], values: Sequence[Any]) -> Dict[str, Any]:
-    """Inverse of :func:`leaves` for the key list ``names``."""
-    return dict(zip(names, values))
+def unflatten(names: Sequence[Path], values: Sequence[Any]
+              ) -> Dict[str, Any]:
+    """Inverse of :func:`leaves` for the key paths ``names`` (as
+    :func:`paths` gives them): the nested dict with ``values`` at those
+    paths."""
+    out: Dict[str, Any] = {}
+    for path, v in zip(names, values):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
 
 
-def tree_map(fn: Callable, tree: Dict[str, Any]) -> Dict[str, Any]:
-    """``fn`` applied to every leaf of a nested dict, same structure."""
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+def tree_map(fn: Callable, tree: Dict[str, Any], *rest: Dict[str, Any]
+             ) -> Dict[str, Any]:
+    """``fn`` applied leaf by leaf to a nested dict and to ``rest`` (dicts
+    of the same structure), the result in ``tree``'s structure."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest))
+            if isinstance(v, dict) else fn(v, *(r[k] for r in rest))
             for k, v in tree.items()}
 
 

@@ -143,10 +143,19 @@ def test_unported_settings_raise(setups):
         make_sim(data, parts, w0, SimConfig(n_devices=8,
                                             handler_mode="wave"),
                  device="cpu")
-    for knobs in (dict(server="sharded"), dict(task="transformer_lm")):
-        with pytest.raises(NotImplementedError):
-            tengine.FLEngine(data, parts, w0, SimConfig(n_devices=8, **knobs),
-                             device="cpu")
+    with pytest.raises(NotImplementedError, match="sharding"):
+        tengine.FLEngine(data, parts, w0, SimConfig(n_devices=8,
+                                                    server="sharded"),
+                         device="cpu")
+    # the LM tasks are ported: an engine on transformer_lm builds
+    from repro_torch.fl.protocols import make_setup
+    lm = make_setup(8, True, 0, 64, 32, "transformer_lm", device="cpu")
+    eng = tengine.FLEngine(*lm, SimConfig(n_devices=8,
+                                          task="transformer_lm"),
+                           device="cpu")
+    assert eng.task.model_cfg.name == "fl-transformer-lm"
+    assert eng._names[0] == ("embed",) and ("layers", "attn", "wq") in \
+        eng._names
 
 
 def test_entry_points_need_a_device_without_cuda(setups, monkeypatch):
@@ -176,7 +185,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                    'msgpack'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 39, names\n"
+        "assert len(names) >= 51, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -117,14 +117,32 @@ def test_submit_validates(lm):
     assert not cb.pending()
 
 
-def test_main_serves_on_cpu_and_from_sim_waits(capsys):
+def test_main_serves_on_cpu_and_from_sim_waits(capsys, tmp_path):
+    """``main`` serves random weights, and with ``--from-sim`` the weights
+    of a simulator checkpoint blob (an engine blob's ``core.server.w``
+    leaves, in pytree order) through the continuous batcher; a task with
+    no transformer config is refused, as in the JAX package."""
     serve.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
                 "--batch", "2", "--prompt-len", "8", "--gen", "3",
                 "--requests", "3"])
     out = capsys.readouterr().out
     assert "mamba2-370m/smoke on cpu" in out
     assert "continuous batching: 3 requests" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.main(["--from-sim", "ckpt.msgpack", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.load_task_params("ckpt.msgpack", "transformer_lm")
+    from repro_torch.checkpoint.io import save_blob
+    from repro_torch.fl.tasks import get_task
+    from repro_torch.utils.tree import leaves
+    task = get_task("ssm_lm")
+    w = task.init_params(torch.Generator().manual_seed(5), "cpu")
+    path = str(tmp_path / "engine.msgpack")
+    save_blob(path, {"core": {"server": {"w": [
+        v.numpy() for v in leaves(w)]}}})
+    serve.main(["--from-sim", path, "--task", "ssm_lm", "--device", "cpu",
+                "--batch", "2", "--requests", "3", "--prompt-len", "8",
+                "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "fl-ssm-lm from" in out and "3 requests x gen=4" in out
+    params, cfg = serve.load_task_params(path, "ssm_lm", device="cpu")
+    assert cfg is task.model_cfg
+    assert all(torch.equal(a, b) for a, b in zip(leaves(params), leaves(w)))
+    with pytest.raises(ValueError, match="not an LM family"):
+        serve.load_task_params(path, "fmnist_cnn", device="cpu")

@@ -1,6 +1,7 @@
 """chip_smoke.py's phases of the batched scheduler (16-19), the fleet
-(20-22) and LM serving (8 and 23-26), rehearsed on CPU tensors at a small
-fleet and the smoke configs, so that the script's own checks do not rot
+(20-22), LM serving (8 and 23-26) and the LM FL tasks, FL -> serve,
+Whisper and InternVL2 (27-34), rehearsed on CPU tensors at a small fleet
+and the smoke configs, so that the script's own checks do not rot
 between card runs."""
 import os
 import sys
@@ -93,3 +94,44 @@ def test_chip_smoke_lm_phases_rehearse_on_cpu(capsys):
     assert out.count("greedy tokens of 2 x 8 equal") == 7
     assert smoke.lm["jamba"]["launches"]["ssd_scan"] == 0
     assert smoke.lm["qwen"]["flash_vs_plain"] <= chip_smoke.FLASH_TOL
+
+
+def test_chip_smoke_lm_task_phases_rehearse_on_cpu(capsys):
+    """chip_smoke.py's phases 27-34 on CPU tensors at a small fleet and
+    the smoke configs: kernel C's gradient against autograd through its
+    plain version (27; the plain version twice here, and the gradient
+    with C's outputs detached visibly off), the three LM tasks serial and
+    cohort with A and B on transformer_lm's nested tree (28), the
+    four-family fleet with both assigners (29, 200 devices to a virtual
+    budget of 2 s, so that every job's rounds do not depend on the
+    machine's pace), the LM tasks
+    card against CPU (30; CPU against CPU), FL -> serve from engine and
+    fleet blobs (31), Whisper and InternVL2 (32-34).  All pass: each
+    launch check expects 0 launches off the card."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500,
+                             ssm_smoke=True, fleet4=(200, 8, None, 0.25, 2.0))
+    for phase in (smoke.kernel_c_grad, smoke.lm_tasks,
+                  smoke.four_family_fleet, smoke.lm_card_vs_cpu_tasks,
+                  smoke.fl_to_serve, smoke.serve_whisper, smoke.serve_vlm,
+                  smoke.encdec_vlm_card_vs_cpu):
+        smoke.phase(phase.__name__, phase)
+    assert smoke.failures == []
+    out = capsys.readouterr().out
+    assert smoke.kernels["ssd_scan"]["grad_detached_rel_err"] > 0.01
+    assert "transformer_lm's trained tree: kernel A's stream" in out
+    assert out.count("time, round and byte columns equal") == 6
+    assert out.count("batcher tokens equal solo generate on 8 of 8") == 2
+    assert "--job 1, 2 and 3 load their own job's weights" in out
+    fleet = smoke.lm["fleet4"]
+    assert fleet["weighted"]["budget_s"] == fleet["adaptive"]["budget_s"]
+    assert all(r["rounds"] >= 1 for a in ("weighted", "adaptive")
+               for r in fleet[a]["jobs"])
+    assert smoke.lm["whisper"]["prefill_vs_forward"] <= chip_smoke.LOGIT_TOL
+    assert smoke.lm["internvl2"]["prefill_vs_forward"] <= \
+        chip_smoke.LOGIT_TOL
+    assert "whisper-tiny/smoke: forward and prefill logits" in out

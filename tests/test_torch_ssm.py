@@ -245,8 +245,7 @@ def test_configs_are_the_jax_packages():
     assert get_smoke_config("mamba2-370m").__dict__ == \
         jax_smoke_config("mamba2_370m").__dict__
     for arch in ("whisper_tiny", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(arch)
+        assert get_config(arch).__dict__ == jax_get_config(arch).__dict__
     with pytest.raises(ValueError):
         get_config("no-such-arch")
 
@@ -269,8 +268,12 @@ def test_other_families_and_no_device_raise(mamba, monkeypatch):
     cfg = mamba[0]
     from repro.configs.base import get_smoke_config as jsc
     for arch in ("whisper_tiny", "internvl2_2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            T.init_model(jsc(arch), torch.Generator(), "cpu")
+        # the other families build, in the JAX package's layout
+        params = T.init_model(jsc(arch), torch.Generator(), "cpu")
+        want = jax.tree.map(lambda a: a.shape, JT.init_model(
+            jax.random.PRNGKey(0), jsc(arch)))
+        assert jax.tree.map(lambda a: tuple(a.shape),
+                            to_numpy(params)) == want
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.init_model(cfg, torch.Generator())
