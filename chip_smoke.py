@@ -161,7 +161,7 @@ Phases, in order; the script exits nonzero if any of them fails:
 29. The four-family fleet: ``benchmarks/engine_scale.py::fleet_specs``
    (10,000 devices, cohort 128, one sample a device a job; re-created
    here), the batched scheduler with the weighted assigner in steps of
-   virtual time for 50 s of wall, then the adaptive one to the same
+   virtual time for 40 s of wall, then the adaptive one to the same
    virtual budget; per job completions, rounds, the fleet's wall per
    task of its own and the kernels' launches in its flushes and
    evaluations; the adaptive/weighted ratio of aggregate
@@ -186,9 +186,42 @@ Phases, in order; the script exits nonzero if any of them fails:
    last logits within ``LOGIT_TOL`` of ``forward``'s.
 34. The card against the CPU for Whisper and InternVL2 at their smoke
    configs: ``forward`` and prefill logits within ``LOGIT_TOL``, Whisper's
-   greedy tokens equal.  Then one JSON line of kernels, the card's
-   ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
-   {...}}``.
+   greedy tokens equal.
+35. Kernel B's channel form at the trainer's rows against its plain
+   version: SmolLM-135M's leaves as (4, n) delta rows (seeded numpy; rows
+   up to 28,311,552), Mamba2-370M's embedding as (4, 51,486,720), and one
+   row of 80,000,000 values (past 2^24 / p_s): equal values; launches, ms
+   on the card and the plain version's against the byte bound.
+36. The federated round at full width: SmolLM-135M (30 layers, d_model
+   576, vocab 49,152, seeded weights) through ``launch/train.py``'s
+   ``main`` (``--mode fed``, 4 groups, 2 local steps, batch 16 x 128, 5
+   rounds, lr 0.1) with every launch counter set to 0 before and read
+   after: kernel B's channel form once per cluster size per round; the
+   first round's combine equal to its deltas through the plain version;
+   ``local_loss`` falling.  Then one round of each schedule from the same
+   weights and batch: gather_f32 and psum within 1e-6, gather_q within its
+   compression error of gather_f32 (a_t times the threshold plus a step,
+   per leaf); one gather_q round profiled for the channel's share.
+37. The federated round at full width: Mamba2-370M (48 layers, d_model
+   1024), 4 groups, 1 local step, batch 8 x 256, 3 rounds: kernel C once
+   per layer per local step (the groups folded into one launch by its vmap
+   rule) and kernel B's channel form every round; the first round's 4
+   group gradients with C's outputs through its autograd Function against
+   the plain version, each leaf within ``SSD_TOL`` (absolute and
+   relative, as phase 27 holds C's gradient).
+38. Plain AdamW at full width: Qwen3-1.7B, 5 steps at batch 8 x 128 with
+   ``--ckpt``: the loss on the first batch falls, peak memory and ms per
+   step printed, no kernel of the port runs, and the checkpoint loads
+   back equal.
+39. The card against the CPU: SmolLM's smoke config, 3 fed rounds
+   (gather_q) and 3 plain steps from the same weights (losses within
+   1e-4; the fed params within a step, or a threshold flip on at most
+   0.1% of the elements, as the CPU tests hold gather_q); and
+   ``run_method("teasq", ..., backend="legacy")`` at 8 devices with
+   ``codec="dense"`` and ``"threshold"`` (columns equal, accuracy within
+   ``ACC_TOL``; kernel B's launches counted in the threshold run).  Then
+   one JSON line of kernels, the card's ``nvidia-smi`` line, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Every card-against-CPU comparison asks for equal time, round and byte
 columns and accuracy within ``ACC_TOL``.
@@ -196,7 +229,7 @@ columns and accuracy within ``ACC_TOL``.
 It needs one card, imports nothing of JAX, and runs from the root of a
 checkout.
 
-    python3 chip_smoke.py --phases 23,24,25,26
+    python3 chip_smoke.py --phases 35,36,37,38,39
 
 runs only the phases named (phase 1, the build, always first) and prints
 neither the kernels line nor the result line (phase 31 serves phase 28's
@@ -344,7 +377,7 @@ class Smoke:
                  n_test=10000, ssm_smoke=False,
                  channel_cs=(1, 2, 8, 16, 26, 32, 64),
                  wave_fleet=100_000, wave_walls=(45.0, 30.0),
-                 fleet4=(10_000, 128, 50.0, 0.1, None)):
+                 fleet4=(10_000, 128, 40.0, 0.1, None)):
         import numpy as np
         import torch
         from repro_torch.configs.base import get_config, get_smoke_config
@@ -394,6 +427,19 @@ class Smoke:
                               gen=16)
         # phase 11: the cohort sizes of the channel form's sweep
         self.channel_cs = channel_cs
+        # phases 35-39: the trainer (launch/train.py) at full width
+        # (SmolLM-135M, Mamba2-370M, Qwen3-1.7B; a rehearsal takes the
+        # smoke configs), and the long row of phase 35 (past 2^24 / p_s)
+        self.trainer_smoke = ssm_smoke
+        self.smollm_cfg = (get_smoke_config if ssm_smoke else get_config)(
+            "smollm-135m")
+        self.long_row = 100_003 if ssm_smoke else 80_000_000
+        self.train_shapes = {
+            "smollm": dict(batch=16, seq=32 if ssm_smoke else 128,
+                           rounds=5, lr=0.1),
+            "mamba": dict(batch=8, seq=32 if ssm_smoke else 256, rounds=3),
+            "qwen": dict(batch=8, seq=32 if ssm_smoke else 128, steps=5)}
+        self.train = {}
         # phases 17 and 18: the dispatch regime's fleet (the one with local
         # steps has a hundredth of it) and the seconds of wall of each
         self.wave_fleet = wave_fleet
@@ -2852,6 +2898,509 @@ class Smoke:
             print(line)
         print(f"   tolerance {LOGIT_TOL} on the logits")
 
+    # -- phases 35-39: the trainer --------------------------------------------
+    def train_argv(self, arch, *extra):
+        """``launch/train.py``'s command line for ``arch`` on this device
+        (at the smoke config on a rehearsal)."""
+        return (["--arch", arch] + (["--smoke"] if self.trainer_smoke
+                                    else [])
+                + ["--device", str(self.dev)] + [str(a) for a in extra])
+
+    def spy_channel(self, keep):
+        """Swap ``ops.threshold_channel_leaves`` (the federated round's
+        compressor) for one that also keeps clones of its inputs and
+        outputs in ``keep`` (``"first"`` call or ``"last"``); returns the
+        function that puts the real one back."""
+        from repro_torch.kernels import ops
+        real = ops.threshold_channel_leaves
+        seen = []
+
+        def spy(rows, p_s, p_q, iters=12):
+            out = real(rows, p_s, p_q, iters)
+            if keep == "last" or not seen:
+                seen[:] = [([r.clone() for r in rows],
+                            [o.clone() for o in out], (p_s, p_q, iters))]
+            return out
+
+        ops.threshold_channel_leaves = spy
+
+        def restore():
+            ops.threshold_channel_leaves = real
+            return seen[0] if seen else None
+        return restore
+
+    def channel_plan_launches(self, params, groups):
+        """Kernel B's launches per application of the round's compressor
+        to ``params``'s leaves as (groups, n) rows: one per cluster size
+        (``channel_plan``)."""
+        from repro_torch.kernels import topk_quant as B
+        from repro_torch.utils.tree import leaves
+        lens = [x.numel() for x in leaves(params)]
+        return len(B.channel_plan(lens, [groups] * len(lens)))
+
+    def quant_bounds(self, rows, p_s, p_q, iters):
+        """Per leaf of the round's delta rows (G, n): one quantization step
+        (the largest row scale over L) and the largest row threshold."""
+        torch = self.torch
+        from repro_torch.core.compression import approx_topk_threshold_rows
+        L = 2 ** (p_q - 1) - 1
+        out = []
+        for r in rows:
+            ax = r.abs()
+            thr = approx_topk_threshold_rows(ax, p_s, iters)
+            kept = torch.where(ax >= thr[:, None], ax, torch.zeros_like(ax))
+            out.append((float(kept.max()) / L, float(thr.max())))
+        return out
+
+    def within_quantization(self, got, want, bounds, what):
+        """``got`` against ``want`` (leaf lists) as the CPU tests hold a
+        gather_q round: every element within the threshold plus a step of
+        its leaf, at most 0.1% of them past one step or past 1e-5.
+        Returns the largest difference."""
+        worst = far = past = total = 0
+        for g, w, (q, thr) in zip(got, want, bounds):
+            err = (g.detach().cpu() - w.detach().cpu()).abs()
+            e = float(err.max())
+            self.expect(e <= (thr + q) * (1 + 1e-6) + 1e-7,
+                        f"{what}: {e} past threshold {thr} + step {q}")
+            past += int((err > q * (1 + 1e-6)).sum())
+            far += int((err > 1e-5).sum())
+            total += err.numel()
+            worst = max(worst, e)
+        self.expect(past <= 1e-3 * total and far <= 1e-3 * total,
+                    f"{what}: {past} past a step, {far} past 1e-5 of "
+                    f"{total}")
+        return worst
+
+    # -- phase 35 -----------------------------------------------------------
+    def channel_trainer_rows(self):
+        np, torch = self.np, self.torch
+        from repro_torch.kernels import topk_quant as B
+        from repro_torch.kernels.ops import threshold_channel_leaves
+        from repro_torch.utils.tree import leaves
+        rng = np.random.default_rng(35)
+        card = self.dev.type == "cuda"
+
+        def rows(shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32) * np.float32(1e-3)).to(self.dev)
+
+        w = self.init_lm(self.smollm_cfg, 0)
+        smollm = [rows((4, x.numel())) for x in leaves(w)]
+        del w
+        cases = [
+            (f"{self.smollm_cfg.name}'s {len(smollm)} leaves as (4, n) "
+             f"delta rows", smollm),
+            (f"{self.ssm_cfg.name}'s embedding as (4, "
+             f"{self.ssm_cfg.vocab * self.ssm_cfg.d_model})",
+             [rows((4, self.ssm_cfg.vocab * self.ssm_cfg.d_model))]),
+            (f"one row of {self.long_row}", [rows((1, self.long_row))])]
+        out = {}
+        for name, xs in cases:
+            before = B.LAUNCHES
+            got = threshold_channel_leaves(xs, 0.25, 8, 12)
+            self.sync()
+            per_call = B.LAUNCHES - before
+            want = B.threshold_channel_plain(xs, 0.25, 8, 12)
+            for g, p in zip(got, want):
+                self.expect(torch.equal(g, p), f"{name}: kernel B's channel "
+                            f"form differs from its plain version")
+            self.expect((per_call > 0) == card, f"{name}: {per_call} "
+                        f"launches")
+            longest = max(x.shape[1] for x in xs)
+            kept = sum(int((g != 0).sum()) for g in got)
+            n = sum(x.numel() for x in xs)
+            line = (f"   {name}: equal to the plain version ({n} values, "
+                    f"rows up to {longest}, {kept / n:.4f} kept; "
+                    f"{per_call} launches)")
+            entry = {"values": n, "longest_row": longest,
+                     "launches_per_call": per_call}
+            if card:
+                ms = time_cuda(lambda: threshold_channel_leaves(
+                    xs, 0.25, 8, 12), iters=10, warmup=1)
+                try:
+                    dev_ms = kernel_device_ms(
+                        lambda: threshold_channel_leaves(xs, 0.25, 8, 12),
+                        "topk_quant", reps=5) * per_call
+                except RuntimeError:      # a timing beside the check
+                    dev_ms = None
+                plain = time_cuda(lambda: B.threshold_channel_plain(
+                    xs, 0.25, 8, 12), iters=3, warmup=1)
+                # each value read once, its dequantized value written once;
+                # 12 bisection steps and 5 operations of quantization each
+                t_bytes = 8 * n / PEAK_BYTES_PER_S * 1e3
+                t_ops = 17 * n / PEAK_F32_OPS_PER_S * 1e3
+                bound = max(t_bytes, t_ops)
+                entry.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                             bound_ms=bound, bound_by="bytes"
+                             if t_bytes >= t_ops else "operations")
+                on_card = ("not measured (the profiler recorded no "
+                           "kernel)" if dev_ms is None else
+                           f"{dev_ms:.3f} ms")
+                line += (f": {ms:.3f} ms per call (events over 10), "
+                         f"{on_card} on the card (profiler), plain "
+                         f"{plain:.3f} ms; bound {bound:.4f} ms "
+                         f"({8 * n} bytes) [{self.card()}]")
+            print(line)
+            out[name] = entry
+            del xs, got, want
+        print("   The kept fraction is counted in integers and converted "
+              "once, in the kernel and in its plain version alike; the JAX "
+              "package's mean sums f32 ones, inexact past 2^24 values, so "
+              "at rows over 2^24 / p_s values the two packages may differ.")
+        self.kernels["topk_quant"]["trainer_rows"] = out
+
+    # -- phase 36 -----------------------------------------------------------
+    def fed_smollm(self):
+        np, torch = self.np, self.torch
+        from repro_torch.core import fed_step as FS
+        from repro_torch.data import make_token_batch
+        from repro_torch.kernels import topk_quant as B
+        from repro_torch.launch import train
+        from repro_torch.models import transformer as T
+        from repro_torch.utils.tree import leaves, tree_map
+        cfg, shp = self.smollm_cfg, self.train_shapes["smollm"]
+        card = self.dev.type == "cuda"
+        if card:
+            torch.cuda.empty_cache()
+        w0 = self.init_lm(cfg, 0)
+        argv = self.train_argv(
+            "smollm-135m", "--mode", "fed", "--groups", 4, "--local-steps",
+            2, "--batch", shp["batch"], "--seq", shp["seq"], "--steps",
+            shp["rounds"], "--lr", shp["lr"])
+        restore = self.spy_channel("first")
+        try:
+            self.sync()
+            self.zero_counts()
+            t0 = time.perf_counter()
+            trained, hist = train.main(argv,
+                                       params=tree_map(torch.clone, w0))
+            self.sync()
+            wall = time.perf_counter() - t0
+            launches = self.read_counts()
+        finally:
+            first = restore()
+        per_round = self.channel_plan_launches(w0, 4)
+        losses = [h["local_loss"] for h in hist]
+        ms = [h["s"] * 1e3 for h in hist]
+        print(f"   train.main {' '.join(argv)}: {len(hist)} rounds in "
+              f"{wall:.2f} s; ms per round {[round(m, 1) for m in ms]} "
+              f"(the first includes the card's warm-up); "
+              f"local_loss {[round(x, 4) for x in losses]}; launches "
+              f"{launches} ({per_round} of B a round) [{self.card()}]")
+        self.expect(launches["topk_quant"] == (per_round * len(hist)
+                                               if card else 0),
+                    f"kernel B's launches in the rounds: {launches}")
+        # the first round's batch, before and after the rounds
+        tok = make_token_batch(np.random.RandomState(0), shp["batch"],
+                               shp["seq"], cfg.vocab)["tokens"]
+        batch = {"tokens": torch.from_numpy(tok).to(self.dev)}
+        with torch.no_grad():
+            on_first = [float(T.lm_loss(w, batch, cfg)[0])
+                        for w in (w0, trained)]
+        del trained
+        print(f"   the loss on the first round's batch: {on_first[0]:.4f} "
+              f"-> {on_first[1]:.4f}")
+        self.expect(losses[-1] < losses[0], f"local_loss did not fall: "
+                    f"{losses}")
+        self.expect(on_first[1] < on_first[0], f"the loss on the first "
+                    f"batch did not fall: {on_first}")
+        rows, outs, (p_s, p_q, iters) = first
+        want = B.threshold_channel_plain(rows, p_s, p_q, iters)
+        for g, p in zip(outs, want):
+            self.expect(torch.equal(g, p), "the first round's combine "
+                        "differs from its deltas through the plain version")
+        print(f"   the first round's combine ({len(rows)} leaves of (4, n) "
+              f"deltas, rows up to {max(r.shape[1] for r in rows)}) equals "
+              f"the same deltas through threshold_channel_plain")
+        del rows, outs, want, first
+
+        # the three schedules from the same weights and the same batch
+        stale = torch.zeros(4, dtype=torch.int32, device=self.dev)
+        res = {}
+        for sched in ("gather_q", "gather_f32", "psum"):
+            fed = FS.FedConfig(n_groups=4, local_steps=2, lr=shp["lr"],
+                               schedule=sched)
+            step = FS.make_fed_train_step(
+                lambda p, b: T.lm_loss(p, b, cfg)[0], fed)
+            restore = self.spy_channel("last")
+            try:
+                res[sched] = step(w0, batch, stale)
+            finally:
+                seen = restore()
+            if sched == "gather_q":
+                bounds = self.quant_bounds(seen[0], p_s, p_q, iters)
+                bounds = [(float(res[sched][1]["alpha_t"]) * q,
+                           float(res[sched][1]["alpha_t"]) * t)
+                          for q, t in bounds]
+                del seen
+        pq, pf, pp = (leaves(res[s][0]) for s in ("gather_q", "gather_f32",
+                                                   "psum"))
+        d_fp = max(float((a - b).abs().max()) for a, b in zip(pf, pp))
+        self.expect(d_fp <= 1e-6, f"gather_f32 and psum differ by {d_fp}")
+        # against f32, gather_q drops the values below each group's
+        # threshold and rounds the rest: within a_t (threshold + step)
+        d_qf = 0.0
+        for a, b, (q, t) in zip(pq, pf, bounds):
+            e = float((a - b).abs().max())
+            self.expect(e <= (t + q) * (1 + 1e-5), f"gather_q off gather_f32 "
+                        f"by {e} > a_t (threshold {t} + step {q})")
+            d_qf = max(d_qf, e)
+        print(f"   one round each from the same weights and batch: "
+              f"gather_f32 and psum within {d_fp:.3g}; gather_q within "
+              f"{d_qf:.3g} of gather_f32 (its compression error: at most "
+              f"a_t times the threshold plus a step, per leaf)")
+        out = {"rounds": len(hist), "ms_per_round": ms, "local_loss": losses,
+               "first_batch_loss": on_first, "launches": launches,
+               "b_launches_per_round": per_round}
+        if card:
+            from torch.profiler import ProfilerActivity, profile
+            step = FS.make_fed_train_step(
+                lambda p, b: T.lm_loss(p, b, cfg)[0],
+                FS.FedConfig(n_groups=4, local_steps=2, lr=shp["lr"]))
+            self.sync()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(w0, batch, stale)
+                self.sync()
+            dev = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in dev) / 1e3
+            chan = sum(e.self_device_time_total for e in dev
+                       if "topk_quant" in e.key) / 1e3
+            rest = sorted(ms[1:]) if len(ms) > 1 else ms
+            med = rest[len(rest) // 2]
+            print(f"   profiled round: {busy:.2f} ms of kernels on the card, "
+                  f"kernel B's channel form {chan:.3f} ms of it "
+                  f"({chan / max(busy, 1e-9):.1%}; {chan / med:.1%} of the "
+                  f"median round's {med:.1f} ms of wall) [{self.card()}]")
+            out.update(kernel_ms=busy, channel_device_ms=chan,
+                       channel_share_of_kernels=chan / max(busy, 1e-9))
+        self.train["fed_smollm"] = out
+        self.add_launches("topk_quant", {"fed round, SmolLM-135M (36)":
+                                         launches["topk_quant"]})
+
+    # -- phase 37 -----------------------------------------------------------
+    def fed_mamba(self):
+        np, torch = self.np, self.torch
+        from repro_torch.data import make_token_batch
+        from repro_torch.kernels import ssd_scan as K
+        from repro_torch.launch import train
+        from repro_torch.models import transformer as T
+        from repro_torch.utils.tree import leaves, paths, tree_map
+        cfg, shp = self.ssm_cfg, self.train_shapes["mamba"]
+        card = self.dev.type == "cuda"
+        if card:
+            torch.cuda.empty_cache()
+        w0 = self.init_lm(cfg, 0)
+        argv = self.train_argv(
+            "mamba2-370m", "--mode", "fed", "--groups", 4, "--local-steps",
+            1, "--batch", shp["batch"], "--seq", shp["seq"], "--steps",
+            shp["rounds"])
+        self.sync()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        _, hist = train.main(argv, params=tree_map(torch.clone, w0))
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = self.read_counts()
+        per_round = self.channel_plan_launches(w0, 4)
+        ms = [h["s"] * 1e3 for h in hist]
+        print(f"   train.main {' '.join(argv)}: {len(hist)} rounds in "
+              f"{wall:.2f} s; ms per round {[round(m, 1) for m in ms]}; "
+              f"local_loss {[round(h['local_loss'], 4) for h in hist]}; "
+              f"launches {launches} (C: {cfg.n_layers} layers x 1 local "
+              f"step a round, the 4 groups folded into one launch; B: "
+              f"{per_round} a round) [{self.card()}]")
+        self.expect(launches["ssd_scan"] == (cfg.n_layers * len(hist)
+                                             if card else 0),
+                    f"kernel C's launches in the rounds: {launches}")
+        self.expect(launches["topk_quant"] == (per_round * len(hist)
+                                               if card else 0),
+                    f"kernel B's launches in the rounds: {launches}")
+        self.expect(all(math.isfinite(h["local_loss"]) for h in hist),
+                    "local_loss not finite")
+
+        # the first round's local gradients under the group vmap, C's
+        # outputs through its autograd Function against the plain version
+        tok = make_token_batch(np.random.RandomState(0), shp["batch"],
+                               shp["seq"], cfg.vocab)["tokens"]
+        gtok = torch.from_numpy(tok).to(self.dev).reshape(
+            4, shp["batch"] // 4, shp["seq"])
+        grad = torch.func.vmap(torch.func.grad(
+            lambda p, t: T.lm_loss(p, {"tokens": t}, cfg)[0]),
+            in_dims=(None, 0))
+        before = K.LAUNCHES
+        g_kernel = grad(w0, gtok)
+        used = K.LAUNCHES - before
+        real = K.ssd_intra_chunk
+        K.ssd_intra_chunk = K.ssd_intra_chunk_plain
+        try:
+            g_plain = grad(w0, gtok)
+        finally:
+            K.ssd_intra_chunk = real
+        names = [".".join(k) for k in paths(w0)]
+        per = []
+        sq_d = sq_g = 0.0
+        for name, a, b in zip(names, leaves(g_kernel), leaves(g_plain)):
+            d = float(torch.linalg.vector_norm(a - b))
+            g = float(torch.linalg.vector_norm(b))
+            sq_d, sq_g = sq_d + d * d, sq_g + g * g
+            per.append((d / max(g, 1e-30), float((a - b).abs().max()),
+                        float(b.abs().max()), name))
+        rel = math.sqrt(sq_d / max(sq_g, 1e-60))
+        dmax = max(p[1] for p in per)
+        self.expect(used == (cfg.n_layers if card else 0),
+                    f"the kernel route launched C {used} times")
+        print(f"   the first round's 4 group gradients: kernel C's route "
+              f"({used} launches) against the plain version: largest "
+              f"element difference {dmax:.3g} (tolerance {SSD_TOL}, "
+              f"absolute and relative, as phase 27), {rel:.3g} of the "
+              f"gradient's norm; the leaves furthest off, relative to "
+              f"their own norm:")
+        for r, d, gmax, name in sorted(per, reverse=True)[:4]:
+            print(f"     {name}: {r:.3g} (largest element difference "
+                  f"{d:.3g}, largest element {gmax:.3g})")
+        for name, a, b in zip(names, leaves(g_kernel), leaves(g_plain)):
+            self.expect(torch.allclose(a, b, atol=SSD_TOL, rtol=SSD_TOL),
+                        f"C's gradient under the group vmap, {name}: off "
+                        f"the plain version's by {float((a - b).abs().max())}")
+        self.train["fed_mamba"] = {"rounds": len(hist), "ms_per_round": ms,
+                                   "launches": launches,
+                                   "grad_max_abs_err": dmax,
+                                   "grad_rel_err": rel}
+        self.kernels["ssd_scan"]["fed_grad_max_abs_err"] = dmax
+        self.add_launches("topk_quant", {"fed round, Mamba2-370M (37)":
+                                         launches["topk_quant"]})
+        self.add_launches("ssd_scan", {"fed round, Mamba2-370M (37)":
+                                       launches["ssd_scan"]})
+
+    # -- phase 38 -----------------------------------------------------------
+    def train_qwen(self):
+        import tempfile
+        np, torch = self.np, self.torch
+        from repro_torch.checkpoint import load_pytree
+        from repro_torch.data import make_token_batch
+        from repro_torch.launch import train
+        from repro_torch.models import transformer as T
+        from repro_torch.utils.tree import leaves
+        cfg, shp = self.qwen_cfg, self.train_shapes["qwen"]
+        card = self.dev.type == "cuda"
+        if card:
+            torch.cuda.empty_cache()
+        # the weights train.main draws from its seed, and its first batch:
+        # the loss on that batch before and after the steps
+        held = [self.init_lm(cfg, 0)]
+        tok = make_token_batch(np.random.RandomState(0), shp["batch"],
+                               shp["seq"], cfg.vocab)["tokens"]
+        first = {"tokens": torch.from_numpy(tok).to(self.dev)}
+        with torch.no_grad():
+            before = float(T.lm_loss(held[0], first, cfg)[0])
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "qwen.msgpack")
+            argv = self.train_argv("qwen3-1.7b", "--mode", "plain",
+                                   "--batch", shp["batch"], "--seq",
+                                   shp["seq"], "--steps", shp["steps"],
+                                   "--ckpt", path)
+            self.sync()
+            self.zero_counts()
+            t0 = time.perf_counter()
+            # the list lets go of the initial weights once the first step
+            # has replaced them
+            params, hist = train.main(argv, params=held.pop())
+            self.sync()
+            wall = time.perf_counter() - t0
+            launches = self.read_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9 if card else None
+            losses = [h["loss"] for h in hist]
+            ms = [h["s"] * 1e3 for h in hist]
+            with torch.no_grad():
+                after = float(T.lm_loss(params, first, cfg)[0])
+            n = sum(x.numel() for x in leaves(params))
+            print(f"   train.main {' '.join(argv[:-2])}: {n} parameters, "
+                  f"{len(hist)} AdamW steps; ms per step "
+                  f"{[round(m, 1) for m in ms]}; loss "
+                  f"{[round(x, 4) for x in losses]}; on the first batch "
+                  f"{before:.4f} -> {after:.4f}; peak memory "
+                  f"{'not measured' if peak is None else f'{peak:.2f} GB'};"
+                  f" {wall:.1f} s with the checkpoint; launches {launches} "
+                  f"(no kernel of the port on this path) [{self.card()}]")
+            self.expect(after < before, f"the loss on the first batch did "
+                        f"not fall: {before} -> {after}")
+            self.expect(all(math.isfinite(x) for x in losses),
+                        f"losses not finite: {losses}")
+            self.expect(sum(launches.values()) == 0, f"a kernel of the "
+                        f"port ran: {launches}")
+            t0 = time.perf_counter()
+            back = load_pytree(path, params, device=self.dev)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(leaves(back), leaves(params)))
+            size = os.path.getsize(path)
+            self.expect(same, "the checkpoint does not load back equal")
+            print(f"   --ckpt: {size} bytes, loaded back equal in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            del back, params
+        self.train["qwen_plain"] = {"steps": len(hist), "ms_per_step": ms,
+                                    "loss": losses, "first_batch_loss":
+                                    [before, after], "peak_gb": peak}
+
+    # -- phase 39 -----------------------------------------------------------
+    def trainer_card_vs_cpu(self):
+        torch = self.torch
+        from repro_torch.configs.base import get_smoke_config
+        from repro_torch.launch import train
+        from repro_torch.models import transformer as T
+        from repro_torch.utils.tree import leaves, tree_map
+        cfg = get_smoke_config("smollm-135m")
+        w = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+        for mode in ("fed", "plain"):
+            got = {}
+            for dev in (self.dev.type, "cpu"):
+                restore = self.spy_channel("last")
+                try:
+                    got[dev] = train.main(
+                        ["--arch", "smollm-135m", "--smoke", "--mode", mode,
+                         "--steps", "3", "--batch", "8", "--seq", "32",
+                         "--device", dev],
+                        params=tree_map(lambda a: a.to(dev), w))
+                finally:
+                    seen = restore()
+            key = "local_loss" if mode == "fed" else "loss"
+            lc = [h[key] for h in got[self.dev.type][1]]
+            lp = [h[key] for h in got["cpu"][1]]
+            d = max(abs(a - b) for a, b in zip(lc, lp))
+            self.expect(d <= 1e-4, f"{mode}: losses differ by {d}")
+            line = (f"   SmolLM smoke, {mode} mode, 3 "
+                    f"{'rounds' if mode == 'fed' else 'steps'}: losses "
+                    f"within {d:.3g}")
+            if mode == "fed":
+                rows, _, (p_s, p_q, iters) = seen
+                bounds = self.quant_bounds(rows, p_s, p_q, iters)
+                worst = self.within_quantization(
+                    leaves(got[self.dev.type][0]), leaves(got["cpu"][0]),
+                    bounds, "fed params, card against CPU")
+                line += (f"; params within {worst:.3g} (one step or a "
+                         f"threshold flip, as the CPU tests hold gather_q)")
+            print(line)
+        self.zero_counts()
+        for codec in ("dense", "threshold"):
+            before = self.read_counts()["topk_quant"]
+            n, rounds, d = self.compare_with_cpu("teasq", backend="legacy",
+                                                 codec=codec)
+            b = self.read_counts()["topk_quant"] - before
+            print(f"   run_method('teasq', backend='legacy', codec="
+                  f"{codec!r}), 8 devices: {n} entries, {rounds} rounds, "
+                  f"time, round and byte columns equal; max |accuracy "
+                  f"diff| {d:.4f}; kernel B's launches on the card {b}")
+            if codec == "threshold":
+                self.expect((b > 0) == (self.dev.type == "cuda"),
+                            f"kernel B's launches in the legacy threshold "
+                            f"run: {b}")
+                self.add_launches("topk_quant", {
+                    "legacy simulator, codec threshold (39)": b})
+
 
 def get_full(cfg):
     """The registry's full config of the architecture behind ``cfg``."""
@@ -3002,6 +3551,15 @@ def main() -> int:
          s.serve_vlm),
         ("34. the card against the CPU, Whisper and InternVL2",
          s.encdec_vlm_card_vs_cpu),
+        ("35. kernel B's channel form at the trainer's rows against its "
+         "plain version", s.channel_trainer_rows),
+        ("36. the federated round at full width: SmolLM-135M, on cuda",
+         s.fed_smollm),
+        ("37. the federated round at full width: Mamba2-370M, on cuda",
+         s.fed_mamba),
+        ("38. plain AdamW at full width: Qwen3-1.7B, on cuda", s.train_qwen),
+        ("39. the card against the CPU, the trainer and the legacy "
+         "simulator", s.trainer_card_vs_cpu),
     ]
     chosen = None
     if sys.argv[1:2] == ["--phases"]:

@@ -8,9 +8,10 @@ from repro_torch.core.compression import (compress_pytree, decompress_pytree,
 from repro_torch.core.dynamic import (CompressionSchedule, greedy_search,
                                       make_schedule)
 from repro_torch.core.server import ServerConfig, TeasqServer
-from repro_torch.core.staleness import (aggregate_cache,
+from repro_torch.core.staleness import (aggregate_cache, merge_global,
+                                        mixing_alpha,
                                         stacked_staleness_weights,
-                                        staleness_weight)
+                                        staleness_weight, weighted_average)
 
 __all__ = [
     "CODECS", "Codec", "DenseRefCodec", "IdentityCodec",
@@ -19,5 +20,6 @@ __all__ = [
     "pytree_dense_bytes", "pytree_wire_bytes",
     "CompressionSchedule", "greedy_search", "make_schedule",
     "ServerConfig", "TeasqServer",
-    "aggregate_cache", "stacked_staleness_weights", "staleness_weight",
+    "aggregate_cache", "merge_global", "mixing_alpha",
+    "stacked_staleness_weights", "staleness_weight", "weighted_average",
 ]

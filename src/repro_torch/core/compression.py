@@ -65,21 +65,29 @@ def topk_mask(x: torch.Tensor, p_s: float) -> torch.Tensor:
     return ax >= thresh
 
 
-def quantize_levels(x: torch.Tensor, bits: int, key: Any = None
+def quantize_levels(x: torch.Tensor, bits: int,
+                    key: Optional[torch.Generator] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """QSGD-style symmetric quantization to ``bits`` bits, rounding to
-    nearest (half to even): (f32 levels in [-L, L], f32 scale)."""
-    if key is not None:
-        raise NotImplementedError(
-            "stochastic rounding in the in-graph quantizer draws from "
-            "jax.random; it arrives with ROADMAP.md Queue A item 5 (the "
-            "datacenter round, core/fed_step.py)")
+    """QSGD-style symmetric quantization to ``bits`` bits: (f32 levels in
+    [-L, L], f32 scale).  Without ``key`` the rounding is to nearest (half
+    to even); with ``key`` (a ``torch.Generator`` on ``x``'s device) it is
+    stochastic and unbiased, as in QSGD: ``floor(y) + (u < y - floor(y))``
+    with ``u`` uniform in [0, 1).  The JAX package draws ``u`` from
+    ``jax.random``, whose bits the port does not reproduce, so this path
+    agrees with it in distribution, not bit for bit."""
     if bits >= FLOAT_BITS:
         return x, torch.tensor(1.0, dtype=torch.float32, device=x.device)
     L = 2 ** (bits - 1) - 1
     # the max in x's own dtype, as the JAX function takes it
     scale = torch.clamp(x.abs().max(), min=1e-12).to(torch.float32)
-    y = torch.round(x.to(torch.float32) / scale * L)
+    y = x.to(torch.float32) / scale * L
+    if key is not None:
+        low = torch.floor(y)
+        u = torch.rand(y.shape, generator=key, dtype=torch.float32,
+                       device=y.device)
+        y = low + (u < y - low).to(torch.float32)
+    else:
+        y = torch.round(y)
     return torch.clamp(y, -L, L), scale
 
 
@@ -92,8 +100,10 @@ def dequantize_levels(levels: torch.Tensor, scale: torch.Tensor,
 
 
 def sparsify_quantize_dense(x: torch.Tensor, p_s: float, p_q: int,
-                            key: Any = None) -> torch.Tensor:
-    """Dense compress -> decompress round trip with exact Top-K."""
+                            key: Optional[torch.Generator] = None
+                            ) -> torch.Tensor:
+    """Dense compress -> decompress round trip with exact Top-K; with
+    ``key`` the quantizer rounds stochastically (:func:`quantize_levels`)."""
     mask = topk_mask(x, p_s)
     kept = torch.where(mask, x, torch.zeros((), dtype=x.dtype,
                                             device=x.device))

@@ -5,8 +5,8 @@ Receiver/Updater: caches K = ceil(N*gamma) updates, then performs the
 staleness-weighted aggregation of Eqs. 6-10 on the parameters' device.
 
 ``SERVERS`` registers the server backends; the port has ``"single"``.
-The sharded backend arrives with ROADMAP.md Queue A item 4 and raises
-until then.
+The sharded backend arrives with ROADMAP.md Queue A item 1 (the mesh
+slice) and raises until then.
 """
 from __future__ import annotations
 
@@ -100,7 +100,8 @@ class TeasqServer:
 SERVERS: Dict[str, type] = {"single": TeasqServer}
 
 # where the not-yet-ported backends arrive
-_LATER = {"sharded": "ROADMAP.md Queue A item 4 (sharding)"}
+_LATER = {"sharded": "ROADMAP.md Queue A item 1 (the mesh slice: "
+                      "sharding over torch.distributed)"}
 
 
 def make_server(name: str, w_init: Params, cfg: ServerConfig, *,

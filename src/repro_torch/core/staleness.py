@@ -10,7 +10,7 @@ stacked on a leading axis (on the device) and reduced with one
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -29,6 +29,33 @@ def stacked_staleness_weights(staleness, n_samples,
     wts = s * torch.as_tensor(n_samples, dtype=torch.float32,
                               device=s.device)
     return wts / torch.sum(wts)
+
+
+def weighted_average(updates: Sequence[Params], staleness: Sequence[float],
+                     n_samples: Sequence[float], a: float = 0.5) -> Params:
+    """Eq. 7: u = sum_c S(t-h_c) n_c w_c / sum_c S(t-h_c) n_c, one
+    multiply-add per update in update order."""
+    device = leaves(updates[0])[0].device
+    wts = stacked_staleness_weights(
+        torch.as_tensor(staleness, dtype=torch.float32, device=device),
+        n_samples, a)
+
+    def avg(*ls):
+        return sum(w * l for w, l in zip(wts, ls))
+
+    return tree_map(avg, *updates)
+
+
+def mixing_alpha(staleness, alpha: float, a: float = 0.5) -> torch.Tensor:
+    """Eqs. 8-9: alpha^t = alpha * S(mean staleness)."""
+    delta = torch.mean(torch.as_tensor(staleness).to(torch.float32))
+    return alpha * staleness_weight(delta, a)
+
+
+def merge_global(w_global: Params, u: Params, alpha_t) -> Params:
+    """Eq. 10: w^{t+1} = alpha^t u + (1 - alpha^t) w^t."""
+    return tree_map(lambda wu, wg: alpha_t * wu + (1.0 - alpha_t) * wg,
+                    u, w_global)
 
 
 def _cache_weights(w_global: Params, cache: List[Tuple[Params, int, int]],

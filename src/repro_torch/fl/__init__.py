@@ -12,8 +12,8 @@ from repro_torch.fl.protocols import (METHODS, STRATEGIES, ProtocolStrategy,
                                       best_acc_within, make_setup, make_sim,
                                       make_strategy, profile_compression,
                                       run_method, time_to_acc)
-from repro_torch.fl.simulator import (LogEntry, ScenarioConfig, SimConfig,
-                                      TierSpec)
+from repro_torch.fl.simulator import (FLSimulator, LogEntry, ScenarioConfig,
+                                      SimConfig, TierSpec)
 from repro_torch.fl.tasks import TASKS, FLTask, get_task, register_task
 
 __all__ = [
@@ -26,6 +26,6 @@ __all__ = [
     "METHODS", "STRATEGIES", "ProtocolStrategy", "best_acc_within",
     "make_setup", "make_sim", "make_strategy", "profile_compression",
     "run_method", "time_to_acc",
-    "LogEntry", "ScenarioConfig", "SimConfig", "TierSpec",
+    "FLSimulator", "LogEntry", "ScenarioConfig", "SimConfig", "TierSpec",
     "TASKS", "FLTask", "get_task", "register_task",
 ]

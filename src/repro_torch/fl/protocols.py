@@ -31,7 +31,8 @@ from repro_torch.core.dynamic import (DEFAULT_SET_Q, DEFAULT_SET_S,
 from repro_torch.core.staleness import staleness_weight
 from repro_torch.data.synthetic import partition_iid, partition_noniid_classes
 from repro_torch.fl.policies import make_policy
-from repro_torch.fl.simulator import LogEntry, SimConfig, moon_local_train
+from repro_torch.fl.simulator import (FLSimulator, LogEntry, SimConfig,
+                                      moon_local_train)
 from repro_torch.fl.tasks import get_task
 from repro_torch.utils.tree import (Params, from_numpy, leaves,
                                     resolve_device, tree_map)
@@ -278,12 +279,19 @@ def make_setup(n_devices: int = 100, iid: bool = True, seed: int = 0,
     return data, parts, w0
 
 
-def make_sim(data, parts, w0: Params, cfg: SimConfig, *, device=None):
-    """Build a runnable engine on ``device`` (the card unless the caller
-    names another).  ``cfg.scheduler`` picks its event loop from
+def make_sim(data, parts, w0: Params, cfg: SimConfig,
+             backend: str = "engine", *, device=None):
+    """Build a runnable simulator on ``device`` (the card unless the
+    caller names another): the strategy-based engine (default) or the
+    legacy monolithic ``FLSimulator`` (the parity reference).
+    ``cfg.scheduler`` picks the engine's event loop from
     ``repro_torch.fl.engine.SCHEDULERS``: the ``"heap"`` one or the
     array-backed ``"batched"`` one (which also runs
     ``handler_mode="wave"``)."""
+    if backend == "legacy":
+        return FLSimulator(data, parts, w0, cfg, device=device)
+    if backend != "engine":
+        raise ValueError(f"unknown backend {backend!r}")
     from repro_torch.fl.engine import SCHEDULERS
     try:
         engine_cls = SCHEDULERS[cfg.scheduler]
@@ -338,16 +346,18 @@ def run_method(method: str, data, parts, w0: Params, *, iid: bool = True,
                time_budget: float = 300.0, seed: int = 0,
                c_fraction: float = 0.1, mu: float = 0.01, alpha: float = 0.6,
                p_s: float = 0.25, p_q: int = 8,
-               schedule=None, eval_every: int = 1, device=None,
+               schedule=None, eval_every: int = 1,
+               backend: str = "engine", device=None,
                **overrides) -> List[LogEntry]:
     """One simulated run of ``method`` on ``device`` (the card unless the
-    caller names another); returns the LogEntry history."""
+    caller names another), on the engine or the ``"legacy"`` simulator;
+    returns the LogEntry history."""
     device = resolve_device(device)
     cfg = SimConfig(method=method, n_devices=len(parts),
                     c_fraction=c_fraction, mu=mu, alpha=alpha,
                     p_s=p_s, p_q=p_q, schedule=schedule, seed=seed,
                     **overrides)
-    sim = make_sim(data, parts, w0, cfg, device=device)
+    sim = make_sim(data, parts, w0, cfg, backend=backend, device=device)
     return sim.run(time_budget=time_budget, eval_every=eval_every)
 
 

@@ -146,16 +146,15 @@ class SSDIntraChunk(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gs, ga):
-        ins = [t.detach().requires_grad_(need) for t, need in
-               zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wrt = [t for t in ins if t.requires_grad]
-        grads = iter(())
-        if wrt:
-            with torch.enable_grad():
-                outs = ssd_intra_chunk_plain(*ins, ctx.heads)
-                grads = iter(torch.autograd.grad(outs, wrt, (gy, gs, ga)))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in ins) + (None,)
+        # torch.func.vjp, not torch.autograd.grad: the backward then also
+        # runs inside torch.func transforms (the federated round's
+        # vmap over groups of grad)
+        _, vjp = torch.func.vjp(
+            lambda *ins: ssd_intra_chunk_plain(*ins, ctx.heads),
+            *ctx.saved_tensors)
+        grads = vjp((gy, gs, ga))
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
 
     @staticmethod
     def vmap(info, in_dims, xb, b, c, cum, heads):

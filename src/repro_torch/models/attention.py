@@ -301,5 +301,5 @@ def attn_decode_seqshard(p, x, pos, cfg, cache):
     """Decode with the KV cache sharded along the sequence over a mesh
     (not ported: the port has no mesh yet)."""
     raise NotImplementedError(
-        "sequence-sharded decode needs a mesh: ROADMAP.md Queue A item 4 "
-        "(sharding over torch.distributed)")
+        "sequence-sharded decode needs a mesh: ROADMAP.md Queue A item 1 "
+        "(the mesh slice: sharding over torch.distributed)")

@@ -12,7 +12,7 @@ Ties among router logits go to the lower expert index, as
 top k come from a stable descending sort.
 
 The expert-parallel path (capacity-bounded dispatch over a mesh) waits
-for ROADMAP.md Queue A item 5.
+for ROADMAP.md Queue A item 1 (the mesh slice).
 """
 from __future__ import annotations
 
@@ -58,10 +58,17 @@ def _route(router: torch.Tensor, x: torch.Tensor, k: int):
     return top_w, top_e, probs
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` in ``dtype``, as a comparison: it also runs
+    under ``torch.func.vmap`` of ``torch.func.grad`` (the federated
+    round's group vmap), where ``F.one_hot``'s range check cannot."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _load_balance_loss(probs: torch.Tensor, top_e: torch.Tensor,
                        n_experts: int) -> torch.Tensor:
     """Switch-transformer aux loss: E * sum_e f_e * p_e."""
-    onehot = F.one_hot(top_e, n_experts).to(torch.float32)   # (T,k,E)
+    onehot = _one_hot(top_e, n_experts, torch.float32)       # (T,k,E)
     frac = onehot.sum(dim=(0, 1)) / (top_e.shape[0] * top_e.shape[1])
     mean_p = probs.mean(dim=0)
     return n_experts * torch.sum(frac * mean_p)
@@ -83,7 +90,7 @@ def _moe_dense_ref(params: Params, x: torch.Tensor, cfg
     # every expert on every token (the reference route)
     y_e = _expert_ffn(params["e_gate"], params["e_up"], params["e_down"],
                       x)                                        # (E,T,D)
-    onehot = F.one_hot(e, E).to(y_e.dtype)                      # (T,k,E)
+    onehot = _one_hot(e, E, y_e.dtype)                          # (T,k,E)
     comb = torch.einsum("tke,tk->et", onehot, w.to(y_e.dtype))
     y = torch.einsum("etd,et->td", y_e, comb)
     return y, _load_balance_loss(probs, e, E)

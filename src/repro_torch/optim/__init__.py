@@ -1,0 +1,6 @@
+from repro_torch.optim.optimizers import (Optimizer, adamw, apply_updates,
+                                          clip_by_global_norm,
+                                          cosine_schedule, sgd)
+
+__all__ = ["Optimizer", "adamw", "apply_updates", "clip_by_global_norm",
+           "cosine_schedule", "sgd"]

@@ -311,7 +311,7 @@ def test_row_positions_rejects_a_wrong_shape():
 
 
 def test_seqshard_decode_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(NotImplementedError, match="Queue A item 1"):
         A.attn_decode_seqshard(None, None, 0, None, None)
 
 

@@ -123,8 +123,13 @@ def test_in_graph_pieces_match_jitted_jax():
                        static_argnums=(1, 2))(jnp.asarray(ax), p_s, iters)
         got = tcomp.approx_topk_threshold(torch.from_numpy(ax), p_s, iters)
         assert got.shape == () and _bits(got) == _bits(want)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tcomp.quantize_levels(torch.from_numpy(x), 8, key=1)
+    # with a key the rounding is stochastic: each level is floor(y) or
+    # floor(y) + 1 of y = x / scale * L (its distribution is held in
+    # tests/test_torch_fed_step.py)
+    tx = torch.from_numpy(x)
+    lv, sc = tcomp.quantize_levels(tx, 8, key=torch.Generator().manual_seed(0))
+    low = torch.floor(tx / sc * 127)
+    assert bool(((lv == low) | (lv == low + 1)).all())
 
 
 # ----------------------------------------------------------------------

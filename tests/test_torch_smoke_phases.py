@@ -135,3 +135,35 @@ def test_chip_smoke_lm_task_phases_rehearse_on_cpu(capsys):
     assert smoke.lm["internvl2"]["prefill_vs_forward"] <= \
         chip_smoke.LOGIT_TOL
     assert "whisper-tiny/smoke: forward and prefill logits" in out
+
+
+def test_chip_smoke_trainer_phases_rehearse_on_cpu(capsys):
+    """chip_smoke.py's phases 35-39 on CPU tensors at the smoke configs:
+    kernel B's channel form at the trainer's rows (the plain version twice
+    here), the federated round of SmolLM and Mamba2 through
+    ``launch/train.py`` (the first round's combine, the three schedules,
+    the group gradients through kernel C's Function against its plain
+    version), Qwen3's AdamW steps with their checkpoint, and the trainer
+    and the legacy simulator card against CPU (CPU against CPU here).  All
+    pass: each launch check expects 0 launches off the card."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500,
+                             ssm_smoke=True)
+    for phase in (smoke.channel_trainer_rows, smoke.fed_smollm,
+                  smoke.fed_mamba, smoke.train_qwen,
+                  smoke.trainer_card_vs_cpu):
+        smoke.phase(phase.__name__, phase)
+    assert smoke.failures == []
+    out = capsys.readouterr().out
+    assert out.count("equal to the plain version") == 3
+    assert "equals the same deltas through threshold_channel_plain" in out
+    assert smoke.train["fed_smollm"]["rounds"] == 5
+    assert smoke.train["fed_mamba"]["grad_max_abs_err"] <= chip_smoke.SSD_TOL
+    first, last = smoke.train["qwen_plain"]["first_batch_loss"]
+    assert last < first
+    assert "loaded back equal" in out
+    assert out.count("time, round and byte columns equal") == 2
