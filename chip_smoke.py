@@ -219,7 +219,32 @@ Phases, in order; the script exits nonzero if any of them fails:
    0.1% of the elements, as the CPU tests hold gather_q); and
    ``run_method("teasq", ..., backend="legacy")`` at 8 devices with
    ``codec="dense"`` and ``"threshold"`` (columns equal, accuracy within
-   ``ACC_TOL``; kernel B's launches counted in the threshold run).  Then
+   ``ACC_TOL``; kernel B's launches counted in the threshold run).
+40. The sharded server in a world of 1 (``launch.mesh.init_world``: NCCL
+   on an in-process store; every phase from 40 destroys its group at its
+   end): phase 4's run (TEASQ, 100 devices, 60,000/10,000, 5 rounds) with
+   ``server="sharded"`` against ``server="single"`` from the same weights,
+   cuDNN deterministic: the time, round and byte columns, the accuracy and
+   the weights equal, bit for bit.  Then the flat column-block body on the
+   card: ``aggregate_cache_sharded_ref`` at 2 and 4 shards over the
+   trained CNN and a cache of 10 updates, within 1 ulp of
+   ``aggregate_cache_stacked``.
+41. The federated round on a (1, 1) mesh: phase 36's SmolLM-135M round (4
+   groups x 2 steps, batch 16 x 128, ``gather_q``) under
+   ``use_rules(Rules(make_host_mesh(1, 1)))``, through the mesh branch and
+   kernel B's channel form with its wire (launches counted): params equal
+   to the no-mesh round's (bit for bit, or within the CPU tests' gather_q
+   rule), at p_q 8 and at 4 (the wire's level bytes halved); ms per round
+   beside the no-mesh round's.
+42. The expert-parallel MoE on Jamba: phase 25's group (4 x 512) prefilled
+   under a (1, 1) mesh, so every MoE layer takes the EP route; the first
+   MoE layer's output on the prefill's hidden states against the dense
+   route, within 1e-4 on every token whose k slots all fit the capacity
+   (the dropped slots counted); prefill ms on both routes.
+43. The sequence-sharded decode: Qwen3-1.7B (phase 24's weights), 4 rows
+   of a 512-token prefill, then 16 greedy steps of
+   ``decode_step(seq_shard_kv=True)`` under a (1, 1) mesh against plain
+   ``decode_step``: logits within 1e-4, tokens equal; ms per step.  Then
    one JSON line of kernels, the card's ``nvidia-smi`` line, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -235,13 +260,30 @@ runs only the phases named (phase 1, the build, always first) and prints
 neither the kernels line nor the result line (phase 31 serves phase 28's
 engines, so it needs 28 named too).
 
+    python3 chip_smoke.py --world 4
+
+runs, on a machine with 4 cards, the mesh slice's phases W1-W3 on a
+(2, 2) NCCL mesh, one process a card (the kernels built once first): the
+sharded server over 4 and 2 shards against the stacked form, the
+federated round at SmolLM's smoke config against the same world's gloo
+mesh on the CPU and at full width, and Qwen3-1.7B's sequence-sharded
+decode against plain decode of the same rows.  It needs no card for
+``--world-rank`` alone (a rank of a gloo world at the smoke configs: a
+rehearsal).
+
     python3 chip_smoke.py --profile-b [CHECKOUT]
 
 times only kernel B's block channel on the CNN's leaves, with the port of
 CHECKOUT (default: this one), so that two trees compare on one card.
+
+    python3 chip_smoke.py --profile-channel [CHECKOUT]
+
+times kernel B's channel form at SmolLM-135M's federated-round rows
+without its wire and, where CHECKOUT's port has it, with it, the same way.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -283,6 +325,10 @@ LM_ARCHS = ("qwen3_1_7b", "smollm_135m", "granite_34b", "phi3_5_moe_42b",
 # the port's CPU tests' tolerance against the JAX package
 LM_TASKS = ("transformer_lm", "moe_lm", "ssm_lm")
 LM_ACC_TOL = 0.025
+# the EP MoE against its dense route on a token whose k slots all fit
+EP_TOL = 1e-4
+# the sequence-sharded decode against plain decode, on the card
+SEQSHARD_TOL = 1e-4
 
 
 def die(msg: str) -> None:
@@ -445,6 +491,8 @@ class Smoke:
         self.wave_fleet = wave_fleet
         self.wave_walls = wave_walls
         self._full = None
+        # phases 40-43: the mesh slice's numbers
+        self.mesh = {}
 
     def sync(self):
         if self.dev.type == "cuda":
@@ -1276,9 +1324,28 @@ class Smoke:
                 self.expect(g.shape == w.shape and g.dtype == w.dtype
                             and torch.equal(g.view(view), w.view(view)),
                             f"channel form leaf {i} != plain {where}")
+            if p_q <= 8:    # the wire: levels and scales beside the values
+                before = B.LAUNCHES
+                gw = threshold_channel_leaves(xs, p_s, p_q, iters, wire=True)
+                n = B.LAUNCHES - before
+                want = launches if card else 0
+                self.expect(n == want, f"{n} wire launches, not {want}, "
+                            f"{where}")
+                pw = B.threshold_channel_plain(xs, p_s, p_q, iters,
+                                               wire=True)
+                for i in range(len(xs)):
+                    self.expect(torch.equal(gw[1][i], pw[1][i])
+                                and gw[1][i].dtype == torch.int8
+                                and torch.equal(gw[2][i].view(torch.int32),
+                                                pw[2][i].view(torch.int32))
+                                and torch.equal(gw[0][i].view(view),
+                                                got[i].view(view)),
+                                f"channel wire leaf {i} != plain {where}")
+                wire_checked[0] += 1
             return max(float((g.float() - w.float()).abs().max())
                        for g, w in zip(got, plain))
 
+        wire_checked = [0]
         for c in self.channel_cs:
             xs = self.cnn_stack(c, 30 + c)
             for p_s in DEFAULT_SET_S:
@@ -1316,9 +1383,13 @@ class Smoke:
               f"bf16 at C = 8; a ragged list of {len(plan)} launches with a "
               f"140,001-value row of ties): outputs bit-identical to the "
               f"plain version (tolerance: exact); 2 launches per "
-              f"application for the CNN")
+              f"application for the CNN; in the {wire_checked[0]} cases at "
+              f"p_q <= 8 also with the wire (int8 levels and f32 scales "
+              f"per row, the federated round's compress_delta), "
+              f"bit-identical to the plain version's")
         self.kernels["topk_quant"].update(channel_checked_cases=checked,
-                                          channel_max_abs_err=worst)
+                                          channel_max_abs_err=worst,
+                                          channel_wire_cases=wire_checked[0])
 
     # -- phase 12 -----------------------------------------------------------
     def full_setup(self):
@@ -3401,6 +3472,528 @@ class Smoke:
                 self.add_launches("topk_quant", {
                     "legacy simulator, codec threshold (39)": b})
 
+    # -- phases 40-43: the mesh slice -------------------------------------
+    @contextlib.contextmanager
+    def world(self):
+        """A world of 1 (NCCL on the card, gloo on a CPU rehearsal) and its
+        (1, 1) mesh, destroyed on the way out."""
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import init_world, make_host_mesh
+        backend = init_world("nccl" if self.dev.type == "cuda" else "gloo")
+        try:
+            mesh = make_host_mesh(1, 1)
+            print(f"   world: 1 rank under {backend}, mesh (data 1, model 1)")
+            yield mesh
+        finally:
+            dist.destroy_process_group()
+
+    def max_ulp(self, a, b):
+        """Largest distance of two f32 tensors in units in the last place."""
+        torch = self.torch
+
+        def order(x):
+            i = x.detach().float().contiguous().view(torch.int32).to(
+                torch.int64)
+            return torch.where(i >= 0, i, -(2 ** 31) - i)
+        return int((order(a) - order(b)).abs().max()) if a.numel() else 0
+
+    def sharded_server(self):
+        np, torch = self.np, self.torch
+        from repro_torch.core import staleness as St
+        from repro_torch.fl.protocols import make_setup, make_sim
+        from repro_torch.fl.simulator import SimConfig
+        n_dev, n_train, n_test = self.fleet
+        data, parts, w0 = make_setup(n_devices=n_dev, iid=True, seed=0,
+                                     n_train=n_train, n_test=n_test,
+                                     device=self.dev)
+        runs = {}
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            with self.world():
+                for server in ("single", "sharded"):
+                    cfg = SimConfig(method="teasq", n_devices=n_dev,
+                                    c_fraction=0.1, mu=0.01, alpha=0.6,
+                                    p_s=0.25, p_q=8, seed=0, codec="packed",
+                                    server=server)
+                    sim = make_sim(data, parts, w0, cfg, device=self.dev)
+                    self.sync()
+                    t0 = time.perf_counter()
+                    hist = sim.run(time_budget=1e9, max_rounds=5)
+                    self.sync()
+                    runs[server] = (hist, sim.server,
+                                    time.perf_counter() - t0)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        (ha, sa, wall_a), (hb, sb, wall_b) = runs["single"], runs["sharded"]
+        self.expect(type(sb).__name__ == "ShardedTeasqServer"
+                    and sb.n_shards == 1 and sb.mesh is None,
+                    f"the sharded server in a world of 1: {type(sb)}, "
+                    f"{sb.n_shards} shards")
+        cols = [[(e.time, e.round, e.bytes_up, e.bytes_down, e.accuracy)
+                 for e in h] for h in (ha, hb)]
+        self.expect(cols[0] == cols[1] and len(cols[0]) >= 5,
+                    "the sharded run's columns differ from the single one's")
+        same = all(torch.equal(sa.w[k], sb.w[k]) for k in sa.w)
+        self.expect(same, "the sharded run's weights differ")
+        print(f"   server='sharded' ({sb.n_shards} shard, no mesh): "
+              f"{hb[-1].round} rounds in {wall_b:.2f} s against 'single' "
+              f"{wall_a:.2f} s; columns, accuracy and weights equal, bit "
+              f"for bit [{self.card()}]")
+        # the flat column-block body on the card
+        rng = np.random.RandomState(40)
+        w = sb.w
+        cache = [({k: v + torch.from_numpy((rng.randn(*v.shape) * 0.01)
+                                           .astype(np.float32)).to(self.dev)
+                   for k, v in w.items()}, int(rng.randint(0, 5)),
+                  int(rng.randint(100, 700))) for _ in range(10)]
+        want = St.aggregate_cache_stacked(w, cache, 6, 0.6, 0.5)
+        ulps = {}
+        for n in (2, 4):
+            got = St.aggregate_cache_sharded_ref(w, cache, 6, 0.6, 0.5,
+                                                 n_shards=n)
+            ulps[n] = max(self.max_ulp(got[k], want[k]) for k in want)
+            self.expect(ulps[n] <= 1, f"{n} shards: {ulps[n]} ulp from "
+                        f"aggregate_cache_stacked")
+        print(f"   aggregate_cache_sharded_ref on {self.dev.type} over the CNN "
+              f"(cache of 10): {ulps} ulp from aggregate_cache_stacked "
+              f"(tolerance: 1 ulp)")
+        self.mesh["server"] = {"wall_single_s": wall_a,
+                                "wall_sharded_s": wall_b,
+                               "rounds": hb[-1].round, "ulps": ulps}
+
+    def fed_mesh(self):
+        np, torch = self.np, self.torch
+        from repro_torch.core import fed_step as FS
+        from repro_torch.data import make_token_batch
+        from repro_torch.models import transformer as T
+        from repro_torch.sharding.rules import Rules, use_rules
+        from repro_torch.utils.tree import leaves
+        cfg, shp = self.smollm_cfg, self.train_shapes["smollm"]
+        card = self.dev.type == "cuda"
+        if card:
+            torch.cuda.empty_cache()
+        w0 = self.init_lm(cfg, 0)
+        tok = make_token_batch(np.random.RandomState(0), shp["batch"],
+                               shp["seq"], cfg.vocab)["tokens"]
+        batch = {"tokens": torch.from_numpy(tok).to(self.dev)}
+        stale = torch.zeros(4, dtype=torch.int32, device=self.dev)
+        per_round = self.channel_plan_launches(w0, 4)
+        n_leaves = len(leaves(w0))
+        out = {}
+
+        def rounds(step, reps):
+            ms, res = [], None
+            for _ in range(reps):
+                self.sync()
+                t0 = time.perf_counter()
+                res = step(w0, batch, stale)
+                self.sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return ms, res
+
+        with self.world() as mesh:
+            for pq, reps in ((8, 3), (4, 1)):
+                fed = FS.FedConfig(n_groups=4, local_steps=2, lr=shp["lr"],
+                                   p_q=pq)
+                step = FS.make_fed_train_step(
+                    lambda p, b: T.lm_loss(p, b, cfg)[0], fed)
+                restore = self.spy_channel("last")
+                try:
+                    ms_plain, (p_ref, m_ref) = rounds(step, 1)
+                finally:
+                    seen = restore()
+                a_t = float(m_ref["alpha_t"])
+                bounds = [(a_t * q, a_t * t) for q, t in self.quant_bounds(
+                    seen[0], fed.p_s, fed.p_q, fed.threshold_iters)]
+                if card and pq == 8:
+                    self.time_wire(seen[0], fed)
+                del seen
+                self.zero_counts()
+                with use_rules(Rules(mesh)):
+                    ms_mesh, (p_m, m_m) = rounds(step, reps)
+                launches = self.read_counts()
+                self.expect(launches["topk_quant"] == (per_round * reps
+                                                       if card else 0),
+                            f"kernel B's launches in the mesh rounds: "
+                            f"{launches}")
+                got, want = leaves(p_m), leaves(p_ref)
+                exact = all(torch.equal(g, w) for g, w in zip(got, want))
+                worst = 0.0 if exact else self.within_quantization(
+                    got, want, bounds, f"mesh round at p_q {pq}")
+                wire = int(m_m["wire_bytes"])
+                self.expect(abs(float(m_m["local_loss"])
+                                - float(m_ref["local_loss"])) <= 1e-5,
+                            "the mesh round's local_loss")
+                rounded = [round(m, 1) for m in ms_mesh]
+                same = ("bit for bit equal" if exact else
+                        f"within {worst:.3g} (the gather_q rule)")
+                print(f"   p_q {pq}: mesh round ms {rounded} (the first "
+                      f"warms), no-mesh {ms_plain[0]:.1f} ms; params {same}"
+                      f" to the no-mesh round's; kernel B launches "
+                      f"{launches['topk_quant']} ({per_round} a round, with "
+                      f"the wire); {wire} bytes on the fed all-gather "
+                      f"[{self.card()}]")
+                out[pq] = {"ms_mesh": ms_mesh, "ms_plain": ms_plain,
+                           "exact": exact, "worst": worst, "wire": wire,
+                           "launches": launches["topk_quant"]}
+                del p_ref, p_m
+        scales = 4 * 4 * n_leaves        # a f32 scale per (group, leaf)
+        lv8, lv4 = out[8]["wire"] - scales, out[4]["wire"] - scales
+        self.expect(lv4 == 4 * -(-(lv8 // 4) // 2),
+                    f"the int4 wire: {lv4} level bytes against {lv8} at "
+                    f"int8")
+        print(f"   the wire's levels: {lv8} bytes at p_q 8, {lv4} at p_q 4 "
+              f"(two a byte), beside {scales} bytes of scales")
+        self.mesh["fed"] = out
+        self.add_launches("topk_quant", {"fed round on a (1, 1) mesh (41)":
+                                         out[8]["launches"]
+                                         + out[4]["launches"]})
+
+    def time_wire(self, rows, fed):
+        """Kernel B's channel form on the round's delta rows with its wire
+        (int8 levels and f32 scales beside the values) and without, by
+        CUDA events, against the plain version and the byte bounds."""
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import topk_quant as B
+        args = (fed.p_s, fed.p_q, fed.threshold_iters)
+        n = sum(r.numel() for r in rows)
+        ms = {w: time_cuda(lambda w=w: ops.threshold_channel_leaves(
+            rows, *args, wire=w), iters=10, warmup=2) for w in (False, True)}
+        plain = time_cuda(lambda: B.threshold_channel_plain(rows, *args,
+                                                            wire=True),
+                          iters=2, warmup=1)
+        # each value read once and written once (4 + 4 bytes), the wire
+        # adds its level (1 byte) and a scale a row
+        bound = {False: 8 * n / PEAK_BYTES_PER_S * 1e3,
+                 True: (9 * n + 4 * sum(r.shape[0] for r in rows))
+                 / PEAK_BYTES_PER_S * 1e3}
+        print(f"   kernel B's channel form on the round's {len(rows)} delta "
+              f"rows of (4, n), {n} values: {ms[True]:.3f} ms with the wire "
+              f"(bound {bound[True]:.3f}), {ms[False]:.3f} ms without "
+              f"(bound {bound[False]:.3f}); plain with the wire "
+              f"{plain:.2f} ms [{self.card()}]")
+        self.kernels["topk_quant"].update(
+            channel_wire_ms=ms[True], channel_nowire_ms=ms[False],
+            channel_wire_plain_ms=plain, channel_wire_bound_ms=bound[True])
+
+    def ep_jamba(self):
+        np, torch = self.np, self.torch
+        from repro_torch.models import moe as MoE
+        from repro_torch.models import transformer as T
+        from repro_torch.sharding.rules import Rules, use_rules
+        cfg, shp = self.jamba_cfg, self.jamba_shape
+        card = self.dev.type == "cuda"
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = self.init_lm(cfg)
+        prompts = np.random.RandomState(3).randint(
+            0, cfg.vocab, (shp["batch"], shp["prompt_len"]))
+        toks = torch.as_tensor(prompts, device=self.dev)
+        real, seen = MoE.moe_apply, []
+
+        def spy(p, x, c):
+            if not seen:
+                seen.append((p, x.detach().clone()))
+            return real(p, x, c)
+
+        with torch.no_grad():
+            ms_dense, (lg_dense, _) = self.timed(
+                lambda: T.prefill(params, {"tokens": toks}, cfg), 2)
+            with self.world() as mesh, use_rules(Rules(mesh)):
+                MoE.moe_apply = spy
+                try:
+                    self.zero_counts()
+                    lg_ep, _ = T.prefill(params, {"tokens": toks}, cfg)
+                    self.sync()
+                    launches = self.read_counts()
+                finally:
+                    MoE.moe_apply = real
+                ms_ep, _ = self.timed(
+                    lambda: T.prefill(params, {"tokens": toks}, cfg), 2)
+                p, x = seen[0]
+                y_ep, _ = MoE.moe_apply(p, x, cfg)
+            y_dense, _ = MoE.moe_apply(p, x, cfg)
+        B, S, D = x.shape
+        n_tok, E, k = B * S, cfg.n_experts, cfg.moe_top_k
+        cap = max(8, int(math.ceil(n_tok * k / E * cfg.capacity_factor)))
+        _, e, _ = MoE._route(p["router"], x.reshape(n_tok, D), k)
+        rank, _ = MoE._dispatch_ranks(e, E)
+        dropped = (rank >= cap).reshape(n_tok, k)
+        fit = ~dropped.any(dim=1)
+        diff = (y_ep - y_dense).reshape(n_tok, D)
+        err = float(diff[fit].abs().max())
+        self.expect(err <= EP_TOL, f"EP against dense on tokens that fit: "
+                    f"{err}")
+        self.expect(launches["ssd_scan"] == (cfg.attn_every - 1 if card
+                                             else 0),
+                    f"kernel C in the EP prefill: {launches}")
+        self.expect(bool(torch.isfinite(lg_ep).all()), "EP logits not finite")
+        peak = torch.cuda.max_memory_allocated() if card else None
+        print(f"   one MoE layer on the prefill's hidden states ({n_tok} "
+              f"tokens, {E} experts, top-{k}, capacity {cap}): "
+              f"{int(dropped.sum())} of {n_tok * k} slots dropped, "
+              f"{int(fit.sum())} tokens with every slot kept, EP within "
+              f"{err:.3g} of the dense route on them (tolerance {EP_TOL}); "
+              f"expert work {E} x {cap} slots against {E} x {n_tok}")
+        print(f"   prefill {shp['batch']} x {S}: EP {ms_ep:.2f} ms, dense "
+              f"{ms_dense:.2f} ms (phase 25: "
+              f"{self.lm.get('jamba', {}).get('prefill_ms', float('nan')):.2f}"
+              f"); logits EP against dense max |diff| "
+              f"{float((lg_ep - lg_dense).abs().max()):.3g}; launches "
+              f"{launches}; peak "
+              f"{'%.2f GB' % (peak / 1e9) if peak else 'n/a'} "
+              f"[{self.card()}]")
+        self.mesh["ep"] = {"ms_ep": ms_ep, "ms_dense": ms_dense,
+                           "dropped": int(dropped.sum()), "capacity": cap,
+                           "err": err}
+        del params, p, x, lg_ep, lg_dense
+        if card:
+            torch.cuda.empty_cache()
+
+    def seqshard_qwen(self):
+        np, torch = self.np, self.torch
+        from repro_torch.models import transformer as T
+        from repro_torch.sharding.rules import Rules, use_rules
+        cfg, shp = self.qwen_cfg, self.qwen_shape
+        card = self.dev.type == "cuda"
+        if card:
+            torch.cuda.empty_cache()
+        params = self.init_lm(cfg)
+        B, S, gen = shp["slots"], shp["prompt_len"], shp["gen"]
+        toks = torch.as_tensor(np.random.RandomState(43).randint(
+            0, cfg.vocab, (B, S)), device=self.dev)
+
+        def run(shard):
+            with torch.no_grad():
+                logits, cache = T.prefill(params, {"tokens": toks}, cfg)
+                cache = T.extend_cache(cache, S + gen)
+                t = logits[:, -1].argmax(-1)[:, None]
+                outs, ms, picked = [], [], []
+                for i in range(gen):
+                    self.sync()
+                    t0 = time.perf_counter()
+                    lg, cache = T.decode_step(params, t, S + i, cfg, cache,
+                                              seq_shard_kv=shard)
+                    self.sync()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    outs.append(lg[:, 0])
+                    t = lg[:, 0].argmax(-1)[:, None]
+                    picked.append(t[:, 0].tolist())
+            return outs, ms, picked
+
+        plain, ms_plain, tok_plain = run(False)
+        with self.world() as mesh, use_rules(Rules(mesh)):
+            shard, ms_shard, tok_shard = run(True)
+        err = max(float((a - b).abs().max()) for a, b in zip(plain, shard))
+        self.expect(err <= SEQSHARD_TOL, f"seqshard logits off by {err}")
+        self.expect(tok_plain == tok_shard, "seqshard greedy tokens differ")
+        med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+        print(f"   {B} rows, prefill {S}, {gen} greedy steps: logits within "
+              f"{err:.3g} of plain decode (tolerance {SEQSHARD_TOL}), "
+              f"tokens equal; ms per step seqshard median "
+              f"{med(ms_shard):.2f} (first {ms_shard[0]:.2f}), plain median "
+              f"{med(ms_plain):.2f} [{self.card()}]")
+        self.mesh["seqshard"] = {"ms_shard": ms_shard, "ms_plain": ms_plain,
+                                 "err": err}
+        del params
+        if card:
+            torch.cuda.empty_cache()
+
+    # -- the mesh slice on several cards (python3 chip_smoke.py --world 4) ---
+    def world_server(self, mesh):
+        """The sharded server over the whole world (and over 2 shards, each
+        pair of ranks reducing the whole vector), NCCL: every rank within 1
+        ulp of the stacked form on its own card, the ranks' weights
+        equal."""
+        np, torch = self.np, self.torch
+        import torch.distributed as dist
+        from repro_torch.core.server import (ServerConfig, TeasqServer,
+                                             make_server)
+        rng = np.random.RandomState(0)
+        base = self.cnn_like(50)
+
+        def tree():
+            return {k: v + torch.from_numpy((rng.randn(*v.shape) * 0.01)
+                                            .astype(np.float32)).to(self.dev)
+                    for k, v in base.items()}
+        w0 = tree()
+        entries = [(tree(), max(0, i % 4 - 1), 10 + 3 * i) for i in range(8)]
+        cfg = ServerConfig(10, gamma=0.3)                  # K = 3
+        ctl = TeasqServer(w0, cfg)
+        ctl.active = len(entries)
+        ctl.receive_many(list(entries))
+        world = dist.get_world_size()
+        for shards in sorted({world, 2}):
+            for wave in (False, True):
+                srv = make_server("sharded", w0, cfg, shards=shards)
+                srv.active = len(entries)
+                if wave:
+                    srv.receive_many(list(entries))
+                else:
+                    for e in entries:
+                        srv.receive(*e)
+                ulp = max(self.max_ulp(srv.w[k], ctl.w[k]) for k in w0)
+                flat = torch.cat([srv.w[k].reshape(-1) for k in sorted(w0)])
+                bits = flat.view(torch.int32).to(torch.int64)
+                h = torch.stack([bits.sum(), (bits * torch.arange(
+                    bits.numel(), device=bits.device)).sum()])
+                lo, hi = h.clone(), h.clone()
+                dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+                dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+                self.expect(srv.n_shards == shards and srv.t == ctl.t
+                            and ulp <= 1 and torch.equal(lo, hi),
+                            f"sharded server over {shards} ranks "
+                            f"({'wave' if wave else 'serial'}): {ulp} ulp, "
+                            f"ranks equal {torch.equal(lo, hi)}")
+                print(f"   server over {shards} of {world} ranks "
+                      f"({'wave' if wave else 'serial'}): {srv.t} rounds, "
+                      f"{ulp} ulp from the stacked form, every rank's "
+                      f"weights equal")
+
+    def world_fed(self, mesh, cpu_mesh):
+        """The federated round on the (2, 2) mesh: SmolLM's smoke config on
+        the cards against the same world's gloo mesh on the CPU, every
+        schedule; then SmolLM-135M at full width, ms per round and B's
+        launches."""
+        np, torch = self.np, self.torch
+        import torch.distributed as dist
+        from repro_torch.configs.base import get_smoke_config
+        from repro_torch.core import fed_step as FS
+        from repro_torch.data import make_token_batch
+        from repro_torch.kernels import ops
+        from repro_torch.models import transformer as T
+        from repro_torch.sharding.rules import Rules, use_rules
+        from repro_torch.utils.tree import leaves, tree_map
+        cfg = get_smoke_config("smollm-135m")
+        w_cpu = T.init_model(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        w_dev = tree_map(lambda v: v.to(self.dev), w_cpu)
+        tok = np.random.RandomState(0).randint(0, cfg.vocab, (8, 32))
+        real, seen = ops.threshold_channel_leaves, []
+
+        def spy(rows, *a, **kw):
+            seen[:] = [[r.detach().clone() for r in rows]]
+            return real(rows, *a, **kw)
+
+        for sched in ("gather_q", "gather_f32", "psum"):
+            fed = FS.FedConfig(n_groups=4, local_steps=1, lr=1e-2,
+                               schedule=sched)
+            step = FS.make_fed_train_step(
+                lambda p, b: T.lm_loss(p, b, cfg)[0], fed)
+            res = {}
+            for m, w, dev in ((cpu_mesh, w_cpu, "cpu"),
+                              (mesh, w_dev, self.dev)):
+                batch = {"tokens": torch.from_numpy(tok).to(dev)}
+                stale = torch.arange(4, device=dev)
+                ops.threshold_channel_leaves = spy
+                try:
+                    with use_rules(Rules(m)):
+                        res[str(dev)] = step(w, batch, stale)
+                finally:
+                    ops.threshold_channel_leaves = real
+            (pc, mc), (pd, md) = res["cpu"], res[str(self.dev)]
+            if sched == "gather_q":
+                b = torch.tensor(self.quant_bounds(seen[0], fed.p_s, fed.p_q,
+                                                   fed.threshold_iters),
+                                 device=self.dev)
+                dist.all_reduce(b, op=dist.ReduceOp.MAX)
+                a_t = float(md["alpha_t"])
+                worst = self.within_quantization(
+                    leaves(pd), leaves(pc), [(a_t * q, a_t * t) for q, t in
+                                             b.tolist()], "(2, 2) gather_q")
+            else:
+                worst = max(float((x.cpu() - y).abs().max())
+                            for x, y in zip(leaves(pd), leaves(pc)))
+                self.expect(worst <= 1e-5, f"(2, 2) {sched}: card off the "
+                            f"CPU by {worst}")
+            dl = abs(float(md["local_loss"]) - float(mc["local_loss"]))
+            self.expect(dl <= 1e-4, f"(2, 2) {sched}: local_loss off by {dl}")
+            print(f"   (2, 2) {sched} at the smoke config: {self.dev.type} "
+                  f"within {worst:.3g} of the same world's gloo mesh on the "
+                  f"CPU, local_loss within {dl:.3g}")
+        # SmolLM-135M at full width
+        full, shp = self.smollm_cfg, self.train_shapes["smollm"]
+        w0 = self.init_lm(full, 0)
+        tok = make_token_batch(np.random.RandomState(0), shp["batch"],
+                               shp["seq"], full.vocab)["tokens"]
+        batch = {"tokens": torch.from_numpy(tok).to(self.dev)}
+        stale = torch.zeros(4, dtype=torch.int32, device=self.dev)
+        step = FS.make_fed_train_step(
+            lambda p, b: T.lm_loss(p, b, full)[0],
+            FS.FedConfig(n_groups=4, local_steps=2, lr=shp["lr"]))
+        ms, launches = [], []
+        with use_rules(Rules(mesh)):
+            for _ in range(3):
+                self.zero_counts()
+                self.sync()
+                t0 = time.perf_counter()
+                _, met = step(w0, batch, stale)
+                self.sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(self.read_counts()["topk_quant"])
+        card = self.dev.type == "cuda"
+        self.expect(len(set(launches)) == 1 and (launches[0] > 0) == card,
+                    f"kernel B's launches a round: {launches}")
+        print(f"   {full.name} (2, 2), 4 groups x 2 steps, batch "
+              f"{shp['batch']} x {shp['seq']}: ms per round "
+              f"{[round(x, 1) for x in ms]} (the first warms); kernel B "
+              f"{launches[0]} launches a round on each rank; "
+              f"{int(met['wire_bytes'])} bytes a rank on the fed "
+              f"all-gather; local_loss {float(met['local_loss']):.4f} "
+              f"[{self.card()}]")
+
+    def world_seqshard(self, mesh):
+        """The sequence-sharded decode of Qwen3-1.7B on the (2, 2) mesh:
+        each data rank's 2 rows of 4, the cache split over ``model``,
+        against plain decode of the same rows on the same card."""
+        np, torch = self.np, self.torch
+        from repro_torch.models import transformer as T
+        from repro_torch.sharding.rules import (Rules, axis_index,
+                                                local_block, use_rules)
+        cfg, shp = self.qwen_cfg, self.qwen_shape
+        params = self.init_lm(cfg)
+        d, n_data = axis_index(mesh, "data")
+        B, S, gen = shp["slots"], shp["prompt_len"], shp["gen"]
+        rows = B // n_data
+        toks = torch.as_tensor(np.random.RandomState(43).randint(
+            0, cfg.vocab, (B, S)), device=self.dev)[d * rows:(d + 1) * rows]
+        with torch.no_grad():
+            logits, cache = T.prefill(params, {"tokens": toks}, cfg)
+            cache = T.extend_cache(cache, S + gen)
+        first = logits[:, -1].argmax(-1)[:, None]
+        blocks = {k: local_block(v, (None, None, "model", None, None),
+                                 mesh).contiguous() for k, v in cache.items()}
+
+        def run(c, shard):
+            t, outs, ms, picked = first, [], [], []
+            with torch.no_grad():
+                for i in range(gen):
+                    self.sync()
+                    t0 = time.perf_counter()
+                    lg, c = T.decode_step(params, t, S + i, cfg, c,
+                                          seq_shard_kv=shard)
+                    self.sync()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    outs.append(lg[:, 0])
+                    t = lg[:, 0].argmax(-1)[:, None]
+                    picked.append(t[:, 0].tolist())
+            return outs, ms, picked
+
+        plain, ms_plain, tok_plain = run(cache, False)
+        with use_rules(Rules(mesh)):
+            shard, ms_shard, tok_shard = run(blocks, True)
+        err = max(float((a - b).abs().max()) for a, b in zip(plain, shard))
+        self.expect(err <= SEQSHARD_TOL and tok_plain == tok_shard,
+                    f"(2, 2) seqshard: logits off by {err}, tokens equal "
+                    f"{tok_plain == tok_shard}")
+        med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+        print(f"   {cfg.name} (2, 2): {rows} rows a data rank, prefill {S}, "
+              f"the cache's {S + gen} slots split over 2 model ranks; "
+              f"{gen} greedy steps within {err:.3g} of plain decode, tokens "
+              f"equal; ms per step seqshard median {med(ms_shard):.2f}, "
+              f"plain median {med(ms_plain):.2f} [{self.card()}]")
 
 def get_full(cfg):
     """The registry's full config of the architecture behind ``cfg``."""
@@ -3479,15 +4072,113 @@ def profile_b(root: str) -> int:
     return 0
 
 
+def profile_channel(root: str) -> int:
+    """Kernel B's channel form at SmolLM-135M's federated-round rows (each
+    leaf as (4, n) rows of seeded normal values at scale 1e-3), with the
+    port of the checkout at ``root``: CUDA events over 10 calls, without
+    the wire and, where the port has it, with the wire (its output held
+    bit for bit against the plain version)."""
+    import inspect
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import topk_quant as B
+    from repro_torch.models import transformer as T
+    from repro_torch.utils.tree import leaves
+    build.library()
+    w = T.init_model(get_config("smollm-135m"),
+                     torch.Generator(device="cuda").manual_seed(0), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = [torch.randn((4, x.numel()), generator=g, device="cuda") * 1e-3
+            for x in leaves(w)]
+    del w
+    args = (0.25, 8, 12)
+    out = {"tree": root, "values": sum(r.numel() for r in rows),
+           "nowire_ms": time_cuda(lambda: ops.threshold_channel_leaves(
+               rows, *args), iters=10, warmup=2)}
+    if "wire" in inspect.signature(ops.threshold_channel_leaves).parameters:
+        out["wire_ms"] = time_cuda(lambda: ops.threshold_channel_leaves(
+            rows, *args, wire=True), iters=10, warmup=2)
+        got = ops.threshold_channel_leaves(rows, *args, wire=True)
+        want = B.threshold_channel_plain(rows, *args, wire=True)
+        out["wire_equal_to_plain"] = all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(got[0] + got[2], want[0] + want[2])) and all(
+            torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    out["card"] = nvidia_smi()
+    print(json.dumps(out), flush=True)
+    return 0 if out.get("wire_equal_to_plain", True) else 1
+
+
+def world_rank() -> int:
+    """One rank of ``--world``: the mesh slice's phases on a (2, world/2)
+    mesh, NCCL for the cards and gloo for the CPU comparison (gloo alone,
+    at the smoke configs, where there is no card: a rehearsal)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    card = torch.cuda.is_available()
+    init_world("cuda:nccl,cpu:gloo" if card else "gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        s = Smoke(f"cuda:{torch.cuda.current_device()}" if card else "cpu",
+                  ssm_smoke=not card)
+        if card:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_host_mesh(2, world // 2)
+        cpu_mesh = make_host_mesh(2, world // 2, device="cpu") if card \
+            else mesh
+        print(f"rank {rank} of {world}: {s.card()}, mesh (data 2, model "
+              f"{world // 2}) under {dist.get_backend()}", flush=True)
+        for name, fn in (("W1. the sharded server", lambda: s.world_server(
+                mesh)), ("W2. the federated round", lambda: s.world_fed(
+                    mesh, cpu_mesh)), ("W3. the sequence-sharded decode",
+                                       lambda: s.world_seqshard(mesh))):
+            s.phase(name, fn)
+        return 1 if s.failures else 0
+    finally:
+        dist.destroy_process_group()
+
+
+def world_main(n: int) -> int:
+    """``--world N``: phases W1-W3 on N cards of this host, one process a
+    card (``launch.mesh.spawn_world``), after building the kernels once."""
+    import torch
+    if torch.cuda.device_count() < n:
+        die(f"--world {n} needs {n} cards; this machine has "
+            f"{torch.cuda.device_count()}")
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_world
+    build.library()
+    print(nvidia_smi(), flush=True)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    try:
+        done = spawn_world([sys.executable, os.path.abspath(__file__),
+                            "--world-rank"], n, timeout=1500, env=env)
+    except RuntimeError as e:
+        print(e)
+        die(f"the world of {n} failed")
+    for rank, d in enumerate(done):
+        print(d.stdout if rank == 0 else d.stdout.splitlines()[0])
+    print(f"world of {n}: every rank passed W1-W3 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
     except ImportError:
         die("PyTorch is not installed")
-    if not torch.cuda.is_available():
+    rehearse = sys.argv[1:2] == ["--world-rank"]
+    if not torch.cuda.is_available() and not rehearse:
         die("no CUDA device is available: this script runs on the card")
     root = ROOT
-    if sys.argv[1:2] == ["--profile-b"] and len(sys.argv) > 2:
+    profile = sys.argv[1:2] in (["--profile-b"], ["--profile-channel"])
+    if profile and len(sys.argv) > 2:
         root = os.path.abspath(sys.argv[2])
     sys.path.insert(0, os.path.join(root, "src"))
     try:
@@ -3497,6 +4188,12 @@ def main() -> int:
             f"checkout")
     if sys.argv[1:2] == ["--profile-b"]:
         return profile_b(root)
+    if sys.argv[1:2] == ["--profile-channel"]:
+        return profile_channel(root)
+    if rehearse:
+        return world_rank()
+    if sys.argv[1:2] == ["--world"]:
+        return world_main(int(sys.argv[2]))
     s = Smoke()
     phases = [
         ("1. device and build", s.device_and_build),
@@ -3560,6 +4257,12 @@ def main() -> int:
         ("38. plain AdamW at full width: Qwen3-1.7B, on cuda", s.train_qwen),
         ("39. the card against the CPU, the trainer and the legacy "
          "simulator", s.trainer_card_vs_cpu),
+        ("40. the sharded server in a world of 1, and the flat body",
+         s.sharded_server),
+        ("41. the federated round on a (1, 1) mesh: SmolLM-135M",
+         s.fed_mesh),
+        ("42. the expert-parallel MoE on Jamba's group", s.ep_jamba),
+        ("43. the sequence-sharded decode: Qwen3-1.7B", s.seqshard_qwen),
     ]
     chosen = None
     if sys.argv[1:2] == ["--phases"]:

@@ -138,9 +138,13 @@ def approx_topk_threshold(ax: torch.Tensor, p_s: float,
 
 
 def sparsify_quantize_threshold_rows(x: torch.Tensor, p_s: float, p_q: int,
-                                     iters: int = 12) -> torch.Tensor:
+                                     iters: int = 12, wire: bool = False):
     """:func:`sparsify_quantize_threshold` of each row of ``x`` (R, n),
-    in ``x``'s dtype."""
+    in ``x``'s dtype.  With ``wire`` (``p_q`` <= 8) -> (values, int8
+    levels (R, n), f32 scales (R,)): the levels and scales are the federated
+    round's ``compress_delta`` of each row."""
+    if wire and p_q > 8:
+        raise ValueError(f"the int8 wire takes p_q <= 8, got {p_q}")
     if p_s >= 1.0 and p_q >= FLOAT_BITS:
         return x
     xf = x.to(torch.float32)
@@ -158,6 +162,8 @@ def sparsify_quantize_threshold_rows(x: torch.Tensor, p_s: float, p_q: int,
         kept = levels * scale * recip32(L)
         if mask is not None:
             kept = torch.where(mask, kept, torch.zeros((), device=x.device))
+        if wire:
+            return kept.to(x.dtype), levels.to(torch.int8), scale[:, 0]
     return kept.to(x.dtype)
 
 

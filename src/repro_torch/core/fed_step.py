@@ -1,8 +1,6 @@
-"""TEASQ-Fed as one federated training round of a model, on one card.
+"""TEASQ-Fed as one federated training round of a model.
 
-The JAX package's ``core/fed_step.py`` on its unsharded branch (the one it
-takes without sharding rules, as ``launch/train.py`` always runs it).  One
-round:
+The JAX package's ``core/fed_step.py``.  One round:
 
   1. every one of G groups runs E prox-SGD local steps (Eq. 5) from the
      broadcast global params on its own microbatches: ``torch.func.vmap``
@@ -18,37 +16,63 @@ Step 3 has three schedules:
   * ``gather_q``: every group's delta through ``compress_delta`` and
     ``decompress_delta``.  That round trip over the G rows of a leaf is
     kernel B's channel form, so it runs as one
-    ``ops.threshold_channel_leaves`` call over the list of ``(G, n)``
-    delta rows: the kernel on the card, its plain version on the CPU;
-  * ``gather_f32`` and ``psum``: without a mesh both are the dense
-    weighted combine of the f32 deltas.
+    ``ops.threshold_channel_leaves`` call over the list of delta rows:
+    the kernel on the card, its plain version on the CPU;
+  * ``gather_f32``: the f32 deltas;
+  * ``psum``: the dense weighted reduce.
 
-The mesh branch of the reference (the explicit all-gather over the fed
-axes, tp/dp group parallelism, the int4 wire of ``p_q <= 4``) needs
-sharding rules over a device mesh, which the port does not have yet: it
-arrives with ROADMAP.md Queue A item 1 (the mesh slice).
+Without sharding rules (one card) the round is the JAX package's
+unsharded branch, and ``gather_f32`` and ``psum`` are the same dense
+combine.  Under ``use_rules(Rules(mesh))`` it is the mesh branch, over
+the ranks of a ``torch.distributed`` world, each running the same call
+on the whole params and batch:
+
+  * the fed axes (``data`` [+ ``pod``]) split the G groups; each rank
+    trains its ``G / |fed axes|`` of them, under the group-local rules of
+    ``group_parallelism`` (``"tp"``, or ``"dp"``; the port computes a
+    group's dense layers replicated over ``model`` in both, and the MoE's
+    experts over ``model``, ``models/moe.py``);
+  * each rank takes its block of every leaf's deltas, cut as the outer
+    rules shard the parameter (``logical_axes_for``), so a threshold and
+    a scale belong to a (group, model block) as in the reference's
+    ``shard_map``;
+  * ``gather_q`` compresses the blocks with kernel B's channel form with
+    its wire (int8 levels and f32 scales; two levels a byte at
+    ``p_q <= 4``) and all-gathers the wire over the fed axes;
+    ``gather_f32`` all-gathers the f32 blocks; ``psum`` all-reduces each
+    rank's weighted partial sum;
+  * each rank forms its block of the new params, and an all-gather over
+    ``model`` makes them whole on every rank.  ``local_loss`` and
+    ``delta_norm`` are the whole round's on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.compression import approx_topk_threshold, recip32
 from repro_torch.core.staleness import (mixing_alpha,
                                         stacked_staleness_weights)
 from repro_torch.kernels import ops
+from repro_torch.sharding.rules import (Rules, active_rules,
+                                        all_gather_dim, axes_size,
+                                        axis_group, gather_block,
+                                        local_block, logical_axes_for,
+                                        use_rules)
 from repro_torch.utils.tree import leaves, paths, tree_map, unflatten
 
 __all__ = ["FedConfig", "approx_topk_threshold", "compress_delta",
-           "decompress_delta", "fed_wire_bytes", "make_fed_train_step"]
+           "decompress_delta", "fed_wire_bytes", "make_fed_train_step",
+           "pack_int4", "unpack_int4"]
 
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
-    n_groups: int = 8             # G
+    n_groups: int = 8             # G (a multiple of the fed axes' size)
     local_steps: int = 1          # E
     lr: float = 1e-3
     mu: float = 0.01              # prox weight (Eq. 5)
@@ -63,12 +87,18 @@ class FedConfig:
     group_parallelism: str = "tp"
 
 
+def _fed_axes(rules: Optional[Rules]) -> Tuple[str, ...]:
+    if rules is None:
+        return ()
+    return tuple(a for a in ("pod", "data") if a in rules.mesh.mesh_dim_names)
+
+
 def compress_delta(x: torch.Tensor, fed: FedConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (int8 levels, zero below the threshold; f32 scale).  The JAX
     package gives ``p_q <= 4`` an int4 wire dtype; here the levels stay
-    int8 at every ``p_q``: the same values, whose packed int4 form matters
-    only to the mesh all-gather."""
+    int8 at every ``p_q`` (the same values), and the mesh branch packs
+    them two a byte for its all-gather (``pack_int4``)."""
     absx = torch.abs(x.to(torch.float32))
     thr = approx_topk_threshold(absx, fed.p_s, fed.threshold_iters)
     mask = absx >= thr
@@ -86,6 +116,22 @@ def decompress_delta(levels: torch.Tensor, scale: torch.Tensor,
     ``jax.jit``: ``(levels * scale) * f32(1/L)``."""
     L = 2 ** (fed.p_q - 1) - 1
     return (levels.to(torch.float32) * scale * recip32(L)).to(dtype)
+
+
+def pack_int4(levels: torch.Tensor) -> torch.Tensor:
+    """int8 levels (R, n) in [-8, 7] -> uint8 (R, ceil(n / 2)): two's
+    complement nibbles, the even index in the low one (the int4 wire)."""
+    u = (levels.to(torch.int16) & 0xF).to(torch.uint8)
+    if u.shape[1] % 2:
+        u = torch.cat([u, u.new_zeros((u.shape[0], 1))], dim=1)
+    return u[:, 0::2] | (u[:, 1::2] << 4)
+
+
+def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of :func:`pack_int4`: uint8 (R, m) -> int8 (R, n)."""
+    u = torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(
+        packed.shape[0], -1)[:, :n].to(torch.int8)
+    return torch.where(u > 7, u - 16, u)
 
 
 def fed_wire_bytes(params: Any, fed: FedConfig, n_groups: int
@@ -131,6 +177,9 @@ def make_fed_train_step(loss_fn: Callable, fed: FedConfig) -> Callable:
     if fed.schedule not in ("gather_q", "gather_f32", "psum"):
         raise ValueError(f"unknown schedule {fed.schedule!r}; expected "
                          f"gather_q, gather_f32 or psum")
+    if fed.group_parallelism not in ("tp", "dp"):
+        raise ValueError(f"unknown group_parallelism "
+                         f"{fed.group_parallelism!r}; expected tp or dp")
     G, E = fed.n_groups, fed.local_steps
     local = torch.func.vmap(
         lambda w, b: _group_local_train(w, b, loss_fn, fed),
@@ -140,6 +189,10 @@ def make_fed_train_step(loss_fn: Callable, fed: FedConfig) -> Callable:
         def split(x):  # (B, ...) -> (G, E, B/(G*E), ...), group-major
             return x.reshape((G, E, x.shape[0] // (G * E)) + x.shape[1:])
 
+        rules = active_rules()
+        if rules is not None:
+            return _mesh_round(local, params, tree_map(split, batch),
+                               staleness, fed, rules)
         w_local, losses = local(params, tree_map(split, batch))
 
         delta = tree_map(lambda wl, w0: wl - w0[None], w_local, params)
@@ -173,3 +226,108 @@ def make_fed_train_step(loss_fn: Callable, fed: FedConfig) -> Callable:
         return unflatten(names, new), metrics
 
     return fed_round
+
+
+# ----------------------------------------------------------------------
+# the mesh branch
+# ----------------------------------------------------------------------
+def _local_rules(rules: Rules, fed: FedConfig) -> Rules:
+    """The rules inside the group-local region: ``batch``/``seq`` must
+    not claim the fed axes (they hold the groups); under ``dp`` the
+    weights are replicated over ``model`` and a group's batch is split
+    over it."""
+    if fed.group_parallelism == "dp":
+        return rules.with_overrides(
+            batch="model", seq=None, heads=None, kv_heads=None, ffn=None,
+            vocab=None, experts=None, ssm_heads=None)
+    return rules.with_overrides(batch=None, seq=None)
+
+
+def _mesh_round(local, params, gbatch, staleness, fed: FedConfig,
+                rules: Rules):
+    """One round on a mesh (the module docstring's mesh branch)."""
+    mesh = rules.mesh
+    G = fed.n_groups
+    fgroup, f_idx, n_fed = axis_group(mesh, _fed_axes(rules))
+    if G % n_fed:
+        raise ValueError(f"{G} groups do not split over the fed axes "
+                         f"{_fed_axes(rules)} of size {n_fed}")
+    g_loc = G // n_fed
+    mine = slice(f_idx * g_loc, (f_idx + 1) * g_loc)
+    with use_rules(_local_rules(rules, fed)):
+        w_local, losses = local(params, tree_map(lambda x: x[mine], gbatch))
+
+    names, w0s = paths(params), leaves(params)
+    device = w0s[0].device
+    stale = torch.as_tensor(staleness, device=device).to(torch.float32)
+    wts = stacked_staleness_weights(stale, torch.ones_like(stale), fed.a)
+    a_t = mixing_alpha(stale, fed.alpha, fed.a)
+
+    # this rank's block of each leaf, as the outer rules shard the param
+    specs = [rules.spec(logical_axes_for("/".join(n), w0.dim()), w0.shape)
+             for n, w0 in zip(names, w0s)]
+    blocks = [local_block(wl - w0[None], (None,) + sp, mesh)
+              for wl, w0, sp in zip(leaves(w_local), w0s, specs)]
+    w0_loc = [local_block(w0, sp, mesh) for w0, sp in zip(w0s, specs)]
+    rows = [d.reshape(g_loc, -1) for d in blocks]
+    metrics = {"alpha_t": a_t}
+
+    if fed.schedule == "psum":
+        # this rank's weighted partial sums, one flat vector
+        flat = torch.cat([torch.einsum("gn,g->n", r.to(torch.float32),
+                                       wts[mine]) for r in rows])
+        if fgroup is not None:
+            dist.all_reduce(flat, group=fgroup)
+        us = list(torch.split(flat, [r.shape[1] for r in rows]))
+    else:
+        if fed.schedule == "gather_q":
+            dq, metrics["wire_bytes"] = _gather_q(rows, fed, fgroup, n_fed)
+        else:
+            flat = torch.cat([r.to(torch.float32) for r in rows], dim=1)
+            dq = all_gather_dim(flat, 0, fgroup, n_fed)
+            metrics["wire_bytes"] = flat.numel() * 4
+            dq = list(torch.split(dq, [r.shape[1] for r in rows], dim=1))
+        us = [torch.einsum("gn,g->n", d, wts) for d in dq]
+    new = [gather_block((w + a_t * u.reshape(w.shape)).to(w.dtype), sp, mesh)
+           for w, u, sp in zip(w0_loc, us, specs)]
+
+    # the whole round's metrics on every rank: a leaf replicated over the
+    # non-fed axes counts once, its share of each rank's sum
+    whole, _, n_all = axis_group(mesh, mesh.mesh_dim_names)
+    rest = n_all // n_fed
+    ss = sum(torch.sum(torch.square(d.to(torch.float32)))
+             * (axes_size(mesh, sp) / rest) for d, sp in zip(blocks, specs))
+    sums = torch.stack([losses.sum().to(torch.float32) / rest,
+                        ss.to(torch.float32)])
+    if whole is not None:
+        dist.all_reduce(sums, group=whole)
+    metrics["local_loss"] = sums[0] / G
+    metrics["delta_norm"] = torch.sqrt(sums[1])
+    return unflatten(names, new), metrics
+
+
+def _gather_q(rows: List[torch.Tensor], fed: FedConfig, group, n_fed: int):
+    """``gather_q``'s wire: each local group's row of each block through
+    ``compress_delta`` (kernel B's channel form with its wire), the levels
+    (two a byte at ``p_q <= 4``) and scales all-gathered over the fed
+    axes, dequantized.  -> (per leaf (G, n) f32, bytes this rank sent)."""
+    if fed.p_s < 1.0:
+        _, lvls, scales = ops.threshold_channel_leaves(
+            rows, fed.p_s, fed.p_q, fed.threshold_iters, wire=True)
+    else:   # keep-all: compress_delta itself (see make_fed_train_step)
+        pairs = [[compress_delta(r, fed) for r in rs] for rs in rows]
+        lvls = [torch.stack([p[0] for p in ps]) for ps in pairs]
+        scales = [torch.stack([p[1] for p in ps]) for ps in pairs]
+    lens = [r.shape[1] for r in rows]
+    flat = torch.cat(lvls, dim=1)
+    wire = pack_int4(flat) if fed.p_q <= 4 else flat
+    sc = torch.stack(scales, dim=1)                     # (g_loc, leaves)
+    sent = wire.numel() * wire.element_size() + sc.numel() * 4
+    wire = all_gather_dim(wire, 0, group, n_fed)
+    sc = all_gather_dim(sc, 0, group, n_fed)            # (G, leaves)
+    if fed.p_q <= 4:
+        wire = unpack_int4(wire, flat.shape[1])
+    out = []
+    for i, lv in enumerate(torch.split(wire, lens, dim=1)):
+        out.append(decompress_delta(lv, sc[:, i:i + 1], fed, torch.float32))
+    return out, sent

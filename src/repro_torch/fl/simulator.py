@@ -146,9 +146,10 @@ class SimConfig:
     defaults (see its ``SimConfig`` docstring for each one).  The port runs
     both schedulers (``"heap"``, ``"batched"``), both handler modes
     (``"serial"``; ``"wave"`` on the batched scheduler only), every codec
-    policy, and ``server="single"`` (``"sharded"`` raises until ROADMAP.md
-    Queue A item 1 ports it), with the serial trainer or, at
-    ``cohort_size > 0``, the cohort trainer."""
+    policy, both servers (``"single"``, and ``"sharded"`` over the ranks of
+    the ``torch.distributed`` world, ``server_shards`` of them at most),
+    with the serial trainer or, at ``cohort_size > 0``, the cohort
+    trainer."""
 
     method: str = "teasq"
     task: str = "fmnist_cnn"

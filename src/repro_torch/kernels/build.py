@@ -134,7 +134,7 @@ def library() -> ctypes.CDLL:
     lib.topk_quant_launch.restype = i32
     lib.topk_channel_launch.argtypes = [i32, i64p, i64p, i64p, i64p, i64p,
                                         i64p, i32, i32, i32, i32, i32, i32,
-                                        vp]
+                                        i64p, vp, vp]
     lib.topk_channel_launch.restype = i32
     lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                     i32, vp, vp, vp, vp]

@@ -88,6 +88,10 @@
 // * one launch per cluster size: the wrapper groups leaves by the CTAs a
 //   row takes, so the CNN's 8 leaves take 2 launches (fc1's rows on 8-CTA
 //   clusters, the other seven one CTA a row).
+// * on request it also writes the wire of the federated round's mesh
+//   branch (src/repro/core/fed_step.py::compress_delta, :81): each value's
+//   int8 level (0 where dropped) into the leaf's level buffer and each
+//   row's f32 scale, indexed by the row's number in the launch; bits 2..8.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -117,10 +121,12 @@ __host__ __device__ __forceinline__ int slice_len(int block, int slices) {
 
 // The leaves of one launch: data pointer, element count, first output row
 // (rows of a leaf are consecutive; first[0] is the launch's first row);
-// the channel form adds each leaf's output, row length and need.
+// the channel form adds each leaf's output, row length and need, and
+// where the wire is asked for, its level buffer.
 struct Leaves {
   const void* x[kMaxLeaves];
   void* out[kMaxLeaves];
+  int8_t* lvl[kMaxLeaves];    // the channel form's levels, or null
   long long n[kMaxLeaves];
   long long first[kMaxLeaves];
   int len[kMaxLeaves];
@@ -233,15 +239,17 @@ __device__ __forceinline__ int quantize(float v, float thr, float scale,
 
 // The channel form's value: 0 where dropped, x where kept without
 // quantization, else (level * scale) * f32(1/L) with the level kept in f32
-// (a level of -0 gives -0, as XLA's does).
+// (a level of -0 gives -0, as XLA's does); the level goes to *q (0 where
+// dropped).
 __device__ __forceinline__ float channel_value(float v, float thr,
                                                float scale, float L,
-                                               float inv_l, bool quant) {
+                                               float inv_l, bool quant,
+                                               float* q) {
+  *q = 0.0f;
   if (!(fabsf(v) >= thr)) return 0.0f;
   if (!quant) return v;
-  float q = rintf(__fmul_rn(__fdiv_rn(v, scale), L));
-  q = fminf(fmaxf(q, -L), L);
-  return __fmul_rn(__fmul_rn(q, scale), inv_l);
+  *q = fminf(fmaxf(rintf(__fmul_rn(__fdiv_rn(v, scale), L)), -L), L);
+  return __fmul_rn(__fmul_rn(*q, scale), inv_l);
 }
 
 // f32 -> bf16 bits, rounding to nearest even
@@ -252,10 +260,14 @@ __device__ __forceinline__ unsigned short to_bf16(float f) {
 }
 
 // kChannel = false: the block form (levels and scales); true: the channel
-// form (row length and need per leaf, values written to the leaf's output).
+// form (row length and need per leaf, values written to the leaf's output),
+// and with kWire its levels and row scales too (a separate instance, so
+// that the channel form without the wire compiles as it did).  Two CTAs an
+// SM: 64 registers a thread (measured on the card: the wire instance took
+// 103 without the bound and 1.7x the time of the channel without it).
 // A slice of at most smem_cap values is held in shared memory.
-template <bool kChannel>
-__global__ void __launch_bounds__(kThreads)
+template <bool kChannel, bool kWire = false>
+__global__ void __launch_bounds__(kThreads, 2)
 topk_quant_kernel(const __grid_constant__ Leaves leaves, int is_bf16,
                   int block_arg, int slices, int need_arg, int bits,
                   int iters, int smem_cap, int keep_all,
@@ -472,6 +484,9 @@ topk_quant_kernel(const __grid_constant__ Leaves leaves, int is_bf16,
     unsigned short* oh =
         reinterpret_cast<unsigned short*>(leaves.out[lf]) + o0;
     const bool of4 = !is_bf16 && (reinterpret_cast<uintptr_t>(of) & 15) == 0;
+    // the wire: levels beside the values, the row's scale
+    int8_t* ol = kWire ? leaves.lvl[lf] + o0 : nullptr;
+    const bool ol4 = kWire && (reinterpret_cast<uintptr_t>(ol) & 3) == 0;
     for (int j = 4 * tid; j < plen; j += 4 * kThreads) {
       float v[4];
       if (in_smem && j + 4 <= len) {
@@ -484,10 +499,22 @@ topk_quant_kernel(const __grid_constant__ Leaves leaves, int is_bf16,
 #pragma unroll
         for (int u = 0; u < 4; ++u) v[u] = j + u < len ? at(j + u) : 0.0f;
       }
-      float o[4];
+      float o[4], q[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        o[u] = channel_value(v[u], thr, scale, L, inv_l, quant);
+        o[u] = channel_value(v[u], thr, scale, L, inv_l, quant, &q[u]);
+      }
+      if constexpr (kWire) {
+        if (ol4 && j + 4 <= plen) {
+          *reinterpret_cast<unsigned*>(ol + j) =
+              ((int)q[0] & 0xff) | ((int)q[1] & 0xff) << 8 |
+              ((int)q[2] & 0xff) << 16 | (unsigned)((int)q[3] & 0xff) << 24;
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (j + u < plen) ol[j + u] = (int8_t)(int)q[u];
+          }
+        }
       }
       if (of4 && j + 4 <= plen) {
         *reinterpret_cast<float4*>(of + j) = make_float4(o[0], o[1], o[2],
@@ -505,6 +532,7 @@ topk_quant_kernel(const __grid_constant__ Leaves leaves, int is_bf16,
         }
       }
     }
+    if (kWire && rank == 0 && tid == 0) scales[row] = scale;
     if (slices > 1) asm volatile("barrier.cluster.wait.aligned;\n" : :);
     return;
   }
@@ -548,16 +576,20 @@ cudaError_t configure_once() {
         topk_quant_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kMaxDynSmem);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(
+    e = cudaFuncSetAttribute(
         topk_quant_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kMaxDynSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(topk_quant_kernel<true, true>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kMaxDynSmem);
   }();
   return status;
 }
 
 // One launch of either form: rows * slices CTAs of kThreads, clusters of
 // `slices`, smem_cap floats of dynamic shared memory a CTA.
-template <bool kChannel>
+template <bool kChannel, bool kWire = false>
 cudaError_t launch(const Leaves& lv, int rows, int is_bf16, int block,
                    int slices, int need, int bits, int iters, int smem_cap,
                    int keep_all, void* levels, void* scales, void* stream) {
@@ -574,9 +606,9 @@ cudaError_t launch(const Leaves& lv, int rows, int is_bf16, int block,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, topk_quant_kernel<kChannel>, lv, is_bf16, block, slices, need,
-      bits, iters, smem_cap, keep_all, reinterpret_cast<int8_t*>(levels),
-      reinterpret_cast<float*>(scales));
+      &cfg, topk_quant_kernel<kChannel, kWire>, lv, is_bf16, block, slices,
+      need, bits, iters, smem_cap, keep_all,
+      reinterpret_cast<int8_t*>(levels), reinterpret_cast<float*>(scales));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -625,18 +657,21 @@ int topk_quant_launch(int n_leaves, const long long* ptrs,
 // cluster; a midpoint is kept as lo when at least needs[i] values of the
 // row are >= it (the least count c with c * f32(1/lens[i]) > p_s in f32).
 // bits is 2..16, or 32 for no quantization; keep_all (p_s >= 1) keeps
-// every value without a search.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// every value without a search.  With lvls not null (bits 2..8) it also
+// writes each value's int8 level to lvls[i] (the leaf's layout) and each
+// row's f32 scale to scales[row], rows numbered in the launch.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
+// does not take.
 int topk_channel_launch(int n_leaves, const long long* ptrs,
                         const long long* outs, const long long* ns,
                         const long long* lens, const long long* needs,
                         const long long* firsts, int rows, int is_bf16,
                         int slices, int bits, int iters, int keep_all,
-                        void* stream) {
+                        const long long* lvls, void* scales, void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves || rows < 1 || slices < 1 ||
       slices > kCluster || !((bits >= 2 && bits <= 16) || bits == 32) ||
       iters < 0 || (long long)rows * slices > 0x7fffffffLL ||
-      firsts[0] != 0) {
+      firsts[0] != 0 || (lvls && (bits > 8 || !scales))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = configure_once();
@@ -654,10 +689,16 @@ int topk_channel_launch(int n_leaves, const long long* ptrs,
     lv.first[i] = firsts[i];
     lv.len[i] = (int)lens[i];
     lv.need[i] = (int)needs[i];
+    lv.lvl[i] = lvls ? reinterpret_cast<int8_t*>(lvls[i]) : nullptr;
     const int part = slice_len(lv.len[i], slices);
     if (part <= kMaxSlice && part > cap) cap = part;
   }
   lv.count = n_leaves;
+  if (lvls) {
+    return (int)launch<true, true>(lv, rows, is_bf16, 0, slices, 0, bits,
+                                   iters, cap, keep_all, nullptr, scales,
+                                   stream);
+  }
   return (int)launch<true>(lv, rows, is_bf16, 0, slices, 0, bits, iters, cap,
                            keep_all, nullptr, nullptr, stream);
 }

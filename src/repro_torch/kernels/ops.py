@@ -51,19 +51,21 @@ def compress_roundtrip_leaves(leaves: Sequence[torch.Tensor],
 
 
 def threshold_channel_leaves(leaves: Sequence[torch.Tensor], p_s: float,
-                             p_q: int, iters: int = 12
-                             ) -> List[torch.Tensor]:
+                             p_q: int, iters: int = 12, wire: bool = False):
     """The cohort trainer's threshold channel: each leaf ``(C, ...)`` row
     by row (one row per device) through ``sparsify_quantize_threshold``,
     the JAX ``jax.vmap(ThresholdGraphCodec(p_s, p_q, iters).apply_tree)``.
     On CUDA tensors kernel B's channel form, one launch per cluster size
     (2 for the CNN); on CPU tensors its plain version.  At ``p_s >= 1``
-    and ``p_q >= 32`` the leaves come back as they are, with no launch."""
-    if p_s >= 1.0 and p_q >= FLOAT_BITS:
+    and ``p_q >= 32`` the leaves come back as they are, with no launch.
+    With ``wire`` (``p_q`` <= 8) it returns (values, int8 levels, f32
+    scales per row): the federated round's ``compress_delta`` of each row,
+    as its mesh branch puts it on the all-gather."""
+    if p_s >= 1.0 and p_q >= FLOAT_BITS and not wire:
         return list(leaves)
     if check_channel(leaves, p_q, iters).type == "cuda":
-        return threshold_channel_cuda(leaves, p_s, p_q, iters)
-    return threshold_channel_plain(leaves, p_s, p_q, iters)
+        return threshold_channel_cuda(leaves, p_s, p_q, iters, wire)
+    return threshold_channel_plain(leaves, p_s, p_q, iters, wire)
 
 
 def ssd(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,

@@ -249,13 +249,19 @@ def dequant(levels: torch.Tensor, scales: torch.Tensor, bits: int, n: int,
 # the channel form
 # ----------------------------------------------------------------------
 def threshold_channel_plain(leaves: Sequence[torch.Tensor], p_s: float,
-                            p_q: int, iters: int = 12) -> List[torch.Tensor]:
+                            p_q: int, iters: int = 12, wire: bool = False):
     """Plain PyTorch version of the channel form: each leaf ``(C, ...)``
     row by row through ``sparsify_quantize_threshold``, all C rows of a
-    leaf at once; each result has its leaf's shape and dtype."""
-    return [sparsify_quantize_threshold_rows(x.reshape(x.shape[0], -1), p_s,
-                                             p_q, iters).reshape(x.shape)
-            for x in leaves]
+    leaf at once; each result has its leaf's shape and dtype.  With
+    ``wire`` (``p_q`` <= 8) -> (values, int8 levels of each leaf's shape,
+    f32 scales (C,) of each leaf): the wire of ``compress_delta``."""
+    outs = [sparsify_quantize_threshold_rows(
+        x.reshape(x.shape[0], -1), p_s, p_q, iters, wire) for x in leaves]
+    if not wire:
+        return [o.reshape(x.shape) for o, x in zip(outs, leaves)]
+    return ([o[0].reshape(x.shape) for o, x in zip(outs, leaves)],
+            [o[1].reshape(x.shape) for o, x in zip(outs, leaves)],
+            [o[2] for o in outs])
 
 
 @functools.lru_cache(maxsize=1024)
@@ -348,13 +354,21 @@ def _channel_launches(shapes: Tuple[Tuple[int, ...], ...], p_s: float
 
 
 def threshold_channel_cuda(leaves: Sequence[torch.Tensor], p_s: float,
-                           p_q: int, iters: int) -> List[torch.Tensor]:
+                           p_q: int, iters: int, wire: bool = False):
     """The channel form through the kernel: one launch per group of
-    :func:`channel_plan`, results in fresh tensors of the leaves' shapes."""
+    :func:`channel_plan`, results in fresh tensors of the leaves' shapes.
+    With ``wire`` (``p_q`` <= 8) -> (values, int8 levels, f32 scales per
+    row), as :func:`threshold_channel_plain` gives them."""
     from repro_torch.kernels.build import check, library
     global LAUNCHES
+    if wire and p_q > 8:
+        raise ValueError(f"the int8 wire takes p_q <= 8, got {p_q}")
     flats = [x.contiguous() for x in leaves]
     outs = [torch.empty_like(x) for x in flats]
+    lvls = [torch.empty(x.shape, dtype=torch.int8, device=x.device)
+            for x in flats] if wire else None
+    scales = [torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+              for x in flats] if wire else None
     bits = FLOAT_BITS if p_q >= FLOAT_BITS else int(p_q)
     is_bf16 = int(flats[0].dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(flats[0].device).cuda_stream
@@ -363,11 +377,23 @@ def threshold_channel_cuda(leaves: Sequence[torch.Tensor], p_s: float,
     for slices, sel, ns, lens, needs, firsts, rows in _channel_launches(
             tuple(tuple(x.shape) for x in flats), float(p_s)):
         k = len(sel)
+        sc = None
+        if wire:    # one scale per row of the launch, split after it
+            sc = torch.empty(rows, dtype=torch.float32,
+                             device=flats[0].device)
         err = lib.topk_channel_launch(
             k, (i64 * k)(*[flats[i].data_ptr() for i in sel]),
             (i64 * k)(*[outs[i].data_ptr() for i in sel]), ns, lens, needs,
             firsts, rows, is_bf16, slices, bits, int(iters),
-            int(p_s >= 1.0), stream)
+            int(p_s >= 1.0),
+            (i64 * k)(*[lvls[i].data_ptr() for i in sel]) if wire else None,
+            sc.data_ptr() if wire else None, stream)
         check(err, "topk_quant channel kernel")
         LAUNCHES += 1
-    return [o.view(x.shape) for o, x in zip(outs, leaves)]
+        if wire:
+            for j, i in enumerate(sel):
+                scales[i] = sc.narrow(0, firsts[j], flats[i].shape[0])
+    vals = [o.view(x.shape) for o, x in zip(outs, leaves)]
+    if not wire:
+        return vals
+    return vals, [v.view(x.shape) for v, x in zip(lvls, leaves)], scales

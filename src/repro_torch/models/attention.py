@@ -297,9 +297,58 @@ def attn_decode(p: Params, x: torch.Tensor, pos, cfg, cache: Params, *,
     return o.reshape(B, 1, -1) @ p["wo"], new_cache
 
 
-def attn_decode_seqshard(p, x, pos, cfg, cache):
-    """Decode with the KV cache sharded along the sequence over a mesh
-    (not ported: the port has no mesh yet)."""
-    raise NotImplementedError(
-        "sequence-sharded decode needs a mesh: ROADMAP.md Queue A item 1 "
-        "(the mesh slice: sharding over torch.distributed)")
+# -- sequence-sharded decode (beyond-paper: MQA/GQA KV too small to TP) ---
+def attn_decode_seqshard(p: Params, x: torch.Tensor, pos, cfg,
+                         cache: Params) -> Tuple[torch.Tensor, Params]:
+    """One-token decode with the KV cache sharded along the SEQUENCE over
+    the active rules' ``model`` axis, merged with a log-sum-exp flash
+    merge across the model ranks.
+
+    ``cache`` is this rank's block: (B, L / model, G, hd) of a cache of L
+    slots, the rank's slots ``[r * L/model, (r + 1) * L/model)``; ``x``
+    holds the rows of this rank's batch block where the rules map
+    ``batch`` to mesh axes.  Only the rank that owns slot ``pos`` writes
+    the new K/V.  The merge is one all-reduce MAX of the local score
+    maxima, then SUMs of the local exponent sums and outputs.  ``pos`` is
+    one int for every row, as in the JAX package.  For MQA (granite:
+    one KV head) a cache cannot shard over heads, so this cuts each
+    rank's KV reads by the model degree."""
+    from repro_torch.sharding.rules import (active_rules, axis_group, pmax,
+                                            psum)
+    rules = active_rules()
+    if rules is None or "model" not in rules.mesh.mesh_dim_names:
+        raise ValueError("the sequence-sharded decode needs active "
+                         "sharding rules with a 'model' axis (use_rules)")
+    pos = torch.as_tensor(pos)
+    if pos.dim() != 0:
+        raise ValueError(f"the sequence-sharded decode takes one position "
+                         f"for every row, got shape {tuple(pos.shape)}")
+    pos = int(pos)
+    group, r, _ = axis_group(rules.mesh, "model")
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q = _project_q(p, x, positions, cfg, rope=True)        # (B,1,H,hd)
+    k_new, v_new = _project_kv(p, x, positions, cfg, rope=True)
+
+    kc, vc = cache["k"], cache["v"]
+    L_loc = kc.shape[1]
+    slot = pos - r * L_loc
+    if 0 <= slot < L_loc:       # this rank owns the slot
+        kc = kc.clone()
+        vc = vc.clone()
+        kc[:, slot] = k_new[:, 0].to(kc.dtype)
+        vc[:, slot] = v_new[:, 0].to(vc.dtype)
+
+    s = _grouped_scores(q, kc)                             # (B,G,rep,1,L_loc)
+    gidx = r * L_loc + torch.arange(L_loc, device=x.device)
+    s = torch.where(gidx <= pos, s, NEG_INF)
+    m = pmax(s.amax(dim=-1), group)                        # (B,G,rep,1)
+    e = torch.exp(s - m[..., None])
+    l_sum = psum(e.sum(dim=-1), group)
+    o = psum(torch.einsum("bgrqk,bkgd->bgrqd",
+                          e.to(vc.dtype).to(torch.float32),
+                          vc.to(torch.float32)), group)
+    o = o / torch.clamp(l_sum, min=1e-30)[..., None]
+    Bq, G, rep, _, hd = o.shape
+    o = o.movedim(3, 1).reshape(Bq, 1, G * rep, hd).to(q.dtype)
+    return o.reshape(B, 1, -1) @ p["wo"], dict(cache, k=kc, v=vc)

@@ -476,11 +476,22 @@ def splice_cache_row(cache: Tree, one: Tree, s: int, axis: int = 1) -> None:
 
 
 def decode_step(params, tokens: torch.Tensor, pos, cfg, cache: Tree, *,
-                rolling: bool = False) -> Tuple[torch.Tensor, Tree]:
+                rolling: bool = False, seq_shard_kv: bool = False
+                ) -> Tuple[torch.Tensor, Tree]:
     """tokens: (B, 1) int; ``pos`` the absolute position, an int or a
     (B,) tensor with each row's own (the SSM recurrence does not read
-    it).  Returns (logits (B, 1, vocab), a new cache)."""
+    it).  Returns (logits (B, 1, vocab), a new cache).
+
+    ``seq_shard_kv`` (the uniform attention stack only, under active
+    sharding rules): each layer's attention is
+    ``attn.attn_decode_seqshard``, ``cache`` this rank's sequence block
+    and ``pos`` one int."""
     x = embed_lookup(params["embed"], tokens)
+    if seq_shard_kv and (cfg.is_hybrid or cfg.is_encoder_decoder
+                         or cfg.is_ssm_only):
+        raise ValueError("seq_shard_kv takes the uniform attention stack "
+                         "only, as in the JAX package")
+    shard_pos = pos
     if not cfg.is_ssm_only:
         pos = attn.row_positions(pos, x.shape[0], x.device)
     new = []
@@ -514,8 +525,12 @@ def decode_step(params, tokens: torch.Tensor, pos, cfg, cache: Tree, *,
             o, lc2 = ssm_mod.ssm_decode(lp["ssm"], h, cfg, lc)
             x = x + o
         else:
-            o, lc2 = attn.attn_decode(lp["attn"], h, pos, cfg, lc,
-                                      rolling=rolling)
+            if seq_shard_kv:
+                o, lc2 = attn.attn_decode_seqshard(lp["attn"], h, shard_pos,
+                                                   cfg, lc)
+            else:
+                o, lc2 = attn.attn_decode(lp["attn"], h, pos, cfg, lc,
+                                          rolling=rolling)
             x = x + o
             if cfg.is_moe:
                 y, _ = moe_mod.moe_apply(

@@ -311,8 +311,34 @@ def test_row_positions_rejects_a_wrong_shape():
 
 
 def test_seqshard_decode_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        A.attn_decode_seqshard(None, None, 0, None, None)
+    """Without sharding rules the sequence-sharded decode raises; on a
+    (1, 1) mesh (a world of 1) the one rank owns every slot, and the
+    decode equals ``attn_decode``'s within 1e-5; it takes one position
+    for every row."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    from repro_torch.sharding.rules import Rules, use_rules
+    cfg, _, _, p = _attn("granite_34b", seed=9)
+    x = torch.from_numpy(_x((2, 1, cfg.d_model), 14))
+    cache = A.init_cache(cfg, 2, 8, torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="rules"):
+        A.attn_decode_seqshard(p, x, 0, cfg, cache)
+    init_world("gloo")
+    try:
+        with use_rules(Rules(make_host_mesh(1, 1))):
+            with pytest.raises(ValueError, match="one position"):
+                A.attn_decode_seqshard(p, x, torch.tensor([0, 1]), cfg,
+                                       cache)
+            c_a = c_b = cache
+            for pos in range(3):
+                xs = torch.from_numpy(_x((2, 1, cfg.d_model), 20 + pos))
+                oa, c_a = A.attn_decode(p, xs, pos, cfg, c_a)
+                ob, c_b = A.attn_decode_seqshard(p, xs, pos, cfg, c_b)
+                _close(ob, oa.numpy())
+            for k in ("k", "v"):
+                _close(c_b[k], c_a[k].numpy())
+    finally:
+        dist.destroy_process_group()
 
 
 # ----------------------------------------------------------------------

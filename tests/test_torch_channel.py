@@ -322,6 +322,30 @@ def test_threshold_channel_refuses_bad_arguments():
 # on the card
 # ----------------------------------------------------------------------
 @pytest.mark.cuda
+def test_threshold_channel_wire_matches_plain_on_card():
+    """The channel form's wire on the card (the federated round's mesh
+    compressor): values, int8 levels and f32 scales bit-identical to the
+    plain version's, the CNN's leaves over C = 1 and 8 devices, p_q 8 and
+    4, over Set_s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the "
+                    "card (python3 chip_smoke.py drives them there)")
+    for c in (1, 8):
+        tree = _cnn_stack(c, 40 + c)
+        xs = [torch.from_numpy(tree[k]).cuda() for k in sorted(tree)]
+        for p_s in DEFAULT_SET_S:
+            for p_q in (8, 4):
+                got = threshold_channel_leaves(xs, p_s, p_q, 12, wire=True)
+                want = ttq.threshold_channel_plain(xs, p_s, p_q, 12,
+                                                   wire=True)
+                for part, (g, w) in enumerate(zip(got, want)):
+                    for a, b in zip(g, w):
+                        same = torch.equal(a, b) if part == 1 else \
+                            _same_bits(a, b)
+                        assert same, (c, p_s, p_q, part)
+
+
+@pytest.mark.cuda
 def test_threshold_channel_kernel_matches_plain_on_card():
     """The channel form on the card against its plain version on the same
     inputs: the CNN's leaves over C = 1, 8 and 16 devices at every

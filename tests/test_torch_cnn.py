@@ -198,5 +198,12 @@ def test_server_rounds_match(weights):
     assert tsrv.t == 2
     for k, v in to_numpy(tsrv.w).items():
         _assert_few_ulp(v, np.asarray(jsrv.w[k]))
-    with pytest.raises(NotImplementedError, match="sharding"):
-        make_server("sharded", tsrv.w, ServerConfig(20))
+    # the sharded server outside a world is the same machine, bit for bit
+    ssrv = make_server("sharded", from_numpy(weights, "cpu"),
+                       ServerConfig(20, 0.15, 0.1))
+    ssrv.active = tsrv.active
+    for u, h, n in _cache(weights, k=4, t=0):
+        ssrv.receive(from_numpy(u, "cpu"), h, n)
+    assert ssrv.n_shards == 1 and ssrv.t == tsrv.t
+    for k, v in ssrv.w.items():
+        assert torch.equal(v, tsrv.w[k])

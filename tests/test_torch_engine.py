@@ -143,10 +143,15 @@ def test_unported_settings_raise(setups):
         make_sim(data, parts, w0, SimConfig(n_devices=8,
                                             handler_mode="wave"),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    # an unknown server raises; the sharded one builds (a world of 1 here)
+    with pytest.raises(ValueError, match="unknown server"):
         tengine.FLEngine(data, parts, w0, SimConfig(n_devices=8,
-                                                    server="sharded"),
+                                                    server="bogus"),
                          device="cpu")
+    eng = tengine.FLEngine(data, parts, w0, SimConfig(n_devices=8,
+                                                      server="sharded"),
+                           device="cpu")
+    assert eng.server.n_shards == 1 and eng.server.mesh is None
     # the LM tasks are ported: an engine on transformer_lm builds
     from repro_torch.fl.protocols import make_setup
     lm = make_setup(8, True, 0, 64, 32, "transformer_lm", device="cpu")

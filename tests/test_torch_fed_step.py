@@ -29,6 +29,7 @@ from repro.core import staleness as JS
 from repro.models import transformer as JT
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.core import compression as C
+from repro_torch.core.dynamic import DEFAULT_SET_Q, DEFAULT_SET_S
 from repro_torch.core import fed_step as F
 from repro_torch.core import staleness as S
 from repro_torch.kernels import ops
@@ -95,6 +96,51 @@ def test_compress_decompress_are_the_jitted_reference(p_s, p_q):
                                                  jnp.float32))(lj, sj)
     dt = F.decompress_delta(lt, st, fed_t, torch.float32)
     np.testing.assert_array_equal(_bits(dt.numpy()), _bits(dj))
+
+
+@pytest.mark.parametrize("p_s", [s for s in DEFAULT_SET_S if s < 1.0])
+@pytest.mark.parametrize("p_q", [q for q in DEFAULT_SET_Q if q <= 8])
+def test_channel_wire_is_compress_delta(p_s, p_q):
+    """Kernel B's channel form with its wire (the plain version here): the
+    int8 levels and f32 scales of each row are the port's
+    ``compress_delta`` and the jitted JAX ``compress_delta``, bit for bit,
+    over Set_s x Set_q (the p_q of Set_q that an int8 wire takes; p_s = 1
+    is the keep-all form, which the round gives to ``compress_delta``
+    itself).  The values beside them are the round trip's."""
+    fed_j = J.FedConfig(p_s=p_s, p_q=p_q)
+    fed_t = F.FedConfig(p_s=p_s, p_q=p_q)
+    rng = np.random.RandomState(int(p_s * 100) + p_q)
+    rows = [(rng.randn(G, n) * 0.03).astype(np.float32)
+            for n in (4099, 37, 1)]
+    rows[0][:, :64] = np.round(rows[0][:, :64] * 64) / 64   # ties
+    vals, lvls, scales = ops.threshold_channel_leaves(
+        [torch.from_numpy(r) for r in rows], p_s, p_q, fed_t.threshold_iters,
+        wire=True)
+    comp = jax.jit(jax.vmap(lambda x: J.compress_delta(x, fed_j)))
+    for r, v, lv, sc in zip(rows, vals, lvls, scales):
+        lj, sj = comp(jnp.asarray(r))
+        assert lv.dtype == torch.int8 and tuple(lv.shape) == r.shape
+        np.testing.assert_array_equal(lv.numpy().astype(np.int32),
+                                      np.asarray(lj).astype(np.int32))
+        assert list(_bits(sc.numpy())) == list(_bits(sj))
+        for i in range(G):
+            lt, st = F.compress_delta(torch.from_numpy(r[i]), fed_t)
+            assert torch.equal(lt, lv[i]) and _bits(st.numpy()) == \
+                _bits(sc[i].numpy())
+        np.testing.assert_array_equal(
+            v.numpy(), F.decompress_delta(lv, sc[:, None], fed_t,
+                                          torch.float32).numpy())
+    with pytest.raises(ValueError, match="int8 wire"):
+        ops.threshold_channel_leaves([torch.from_numpy(rows[1])], p_s, 16,
+                                     wire=True)
+
+
+def test_int4_wire_packs_two_levels_a_byte():
+    lv = torch.from_numpy(np.random.RandomState(4).randint(
+        -7, 8, (3, 11)).astype(np.int8))
+    packed = F.pack_int4(lv)
+    assert packed.dtype == torch.uint8 and tuple(packed.shape) == (3, 6)
+    assert torch.equal(F.unpack_int4(packed, 11), lv)
 
 
 def test_gather_q_combine_is_the_channel_form(model):

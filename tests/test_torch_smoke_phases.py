@@ -167,3 +167,35 @@ def test_chip_smoke_trainer_phases_rehearse_on_cpu(capsys):
     assert last < first
     assert "loaded back equal" in out
     assert out.count("time, round and byte columns equal") == 2
+
+
+def test_chip_smoke_mesh_phases_rehearse_on_cpu(capsys):
+    """chip_smoke.py's phase 11 (kernel B's channel form, with its wire at
+    p_q <= 8) and phases 40-43 (the mesh slice in a world of 1, gloo
+    here) on CPU tensors at a small fleet and the smoke configs: the
+    sharded server equal to the single one bit for bit, the flat body
+    within 1 ulp, the (1, 1) mesh round equal to the no-mesh round with
+    the int4 wire halving the level bytes, the EP MoE within 1e-4 of the
+    dense route, the sequence-sharded decode within 1e-4 of plain decode
+    with equal tokens.  All pass: each launch check expects 0 launches
+    off the card."""
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500,
+                             ssm_smoke=True, channel_cs=(1, 8))
+    for phase in (smoke.channel_b, smoke.sharded_server, smoke.fed_mesh,
+                  smoke.ep_jamba, smoke.seqshard_qwen):
+        smoke.phase(phase.__name__, phase)
+    assert smoke.failures == []
+    assert not dist.is_initialized()         # every phase ends its world
+    out = capsys.readouterr().out
+    assert "also with the wire" in out
+    assert out.count("world: 1 rank under gloo") == 4
+    assert smoke.mesh["server"]["ulps"] == {2: 0, 4: 0}
+    assert smoke.mesh["fed"][8]["exact"] and smoke.mesh["fed"][4]["exact"]
+    assert smoke.mesh["ep"]["err"] <= chip_smoke.EP_TOL
+    assert smoke.mesh["seqshard"]["err"] <= chip_smoke.SEQSHARD_TOL
