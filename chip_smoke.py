@@ -244,9 +244,35 @@ Phases, in order; the script exits nonzero if any of them fails:
 43. The sequence-sharded decode: Qwen3-1.7B (phase 24's weights), 4 rows
    of a 512-token prefill, then 16 greedy steps of
    ``decode_step(seq_shard_kv=True)`` under a (1, 1) mesh against plain
-   ``decode_step``: logits within 1e-4, tokens equal; ms per step.  Then
-   one JSON line of kernels, the card's ``nvidia-smi`` line, and the last
-   line ``{"ok": true, "device": {...}}``.
+   ``decode_step``: logits within 1e-4, tokens equal; ms per step.
+44. The federated round with the chunked loss and per-layer recompute:
+   phase 36's SmolLM-135M round (4 groups x 2 steps, batch 16 x 128) on
+   ``lm_loss(loss_chunk=32, remat=True)`` against the same round without
+   either, from the same weights (a plain round first, to warm up and
+   keep the channel's rows): local losses within 1e-4, params within the
+   CPU tests' gather_q rule, 3 launches of B a round; each round's ms
+   and ``max_memory_allocated``.
+45. The dry run on this host (``launch/dryrun.py``, in processes of its
+   own, each joining a fake world of 256 or 512 ranks; the card is not
+   used): Qwen3-1.7B at the four input shapes on the 16 x 16 mesh, its
+   decode_32k on 2 x 16 x 16 and Mamba2-370M's long_500k; no error
+   record; each record's arguments, temp, TFLOP and collective bytes a
+   rank, and the wall.
+46. The dry run held to the card: ``trace_step`` with no mesh on
+   Qwen3-1.7B's ``decode_step`` (batch 8, a 4,096-slot cache, bf16) and
+   SmolLM-135M's plain step (batch 8 x 512, ``remat=True``, bf16), then
+   the same steps on the card after a warm-up: the predicted argument
+   bytes equal to the bytes that building the inputs requested of the
+   caching allocator (``requested_bytes``, its temporaries freed), the
+   predicted peak (arguments + temp)
+   within 15% of ``max_memory_allocated`` for the step; the achieved
+   TFLOP/s from the predicted FLOPs.
+47. The five example twins (``examples/torch_*.py``) in this process at
+   their smallest settings, the kernel counts zeroed before each: kernels
+   A and B launched by the compression demo, C by the serving demo, B by
+   the pod demo (a world of 1 under NCCL).  Then one JSON line of
+   kernels, the card's ``nvidia-smi`` line, and the last line ``{"ok":
+   true, "device": {...}}``.
 
 Every card-against-CPU comparison asks for equal time, round and byte
 columns and accuracy within ``ACC_TOL``.
@@ -423,7 +449,11 @@ class Smoke:
                  n_test=10000, ssm_smoke=False,
                  channel_cs=(1, 2, 8, 16, 26, 32, 64),
                  wave_fleet=100_000, wave_walls=(45.0, 30.0),
-                 fleet4=(10_000, 128, 40.0, 0.1, None)):
+                 fleet4=(10_000, 128, 40.0, 0.1, None),
+                 twins=("torch_quickstart.py", "torch_serve_batch.py",
+                        "torch_compression_kernel_demo.py",
+                        "torch_fl_end_to_end.py",
+                        "torch_multipod_fed_round.py")):
         import numpy as np
         import torch
         from repro_torch.configs.base import get_config, get_smoke_config
@@ -493,6 +523,14 @@ class Smoke:
         self._full = None
         # phases 40-43: the mesh slice's numbers
         self.mesh = {}
+        # phases 44-47: the dry run's numbers, and phase 46's shapes
+        # (Qwen3-1.7B's decode batch and cache slots, SmolLM-135M's plain
+        # step batch and sequence)
+        self.dryrun = {}
+        self.dryrun_shapes = ((2, 64), (2, 32)) if ssm_smoke else \
+            ((8, 4096), (8, 512))
+        # phase 47: the example twins it runs (a rehearsal may take fewer)
+        self.twins = twins
 
     def sync(self):
         if self.dev.type == "cuda":
@@ -3801,6 +3839,312 @@ class Smoke:
         if card:
             torch.cuda.empty_cache()
 
+    # -- phase 44 -----------------------------------------------------------
+    def fed_remat(self):
+        """Phase 36's round with the chunked loss and per-layer recompute
+        (``lm_loss(loss_chunk=32, remat=True)``, both through
+        ``models/transformer.py::_Recompute``) against the round without
+        either, from the same weights and batch."""
+        np, torch = self.np, self.torch
+        from repro_torch.core import fed_step as FS
+        from repro_torch.data import make_token_batch
+        from repro_torch.models import transformer as T
+        from repro_torch.utils.tree import leaves
+        cfg, shp = self.smollm_cfg, self.train_shapes["smollm"]
+        card = self.dev.type == "cuda"
+        if card:
+            torch.cuda.empty_cache()
+        w0 = self.init_lm(cfg, 0)
+        tok = make_token_batch(np.random.RandomState(0), shp["batch"],
+                               shp["seq"], cfg.vocab)["tokens"]
+        batch = {"tokens": torch.from_numpy(tok).to(self.dev)}
+        stale = torch.zeros(4, dtype=torch.int32, device=self.dev)
+        per_round = self.channel_plan_launches(w0, 4)
+        fed = FS.FedConfig(n_groups=4, local_steps=2, lr=shp["lr"])
+        forms = {"plain": {}, "remat": dict(loss_chunk=32, remat=True)}
+        res = {}
+        # the plain round twice: the first warms the card up and keeps
+        # the channel's rows (for the gather_q rule), outside the timed
+        # and measured rounds
+        restore = self.spy_channel("last")
+        try:
+            step = FS.make_fed_train_step(
+                lambda p, b: T.lm_loss(p, b, cfg)[0], fed)
+            step(w0, batch, stale)
+        finally:
+            rows, _, (p_s, p_q, iters) = restore()
+        for name in ("remat", "plain"):
+            kw = forms[name]
+            step = FS.make_fed_train_step(
+                lambda p, b, kw=kw: T.lm_loss(p, b, cfg, **kw)[0], fed)
+            self.sync()
+            if card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() if card else 0
+            self.zero_counts()
+            t0 = time.perf_counter()
+            params, m = step(w0, batch, stale)
+            self.sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = self.read_counts()
+            peak = torch.cuda.max_memory_allocated() if card else 0
+            self.expect(launches["topk_quant"] == (per_round if card
+                                                   else 0),
+                        f"kernel B's launches in the {name} round: "
+                        f"{launches}")
+            res[name] = dict(params=params, metrics=m, ms=ms, peak=peak,
+                             above=peak - base, launches=launches)
+            del params, m
+        plain, remat = res["plain"], res["remat"]
+        d_loss = abs(float(remat["metrics"]["local_loss"])
+                     - float(plain["metrics"]["local_loss"]))
+        self.expect(d_loss <= 1e-4, f"local_loss off by {d_loss}")
+        a_t = float(plain["metrics"]["alpha_t"])
+        bounds = [(a_t * q, a_t * t)
+                  for q, t in self.quant_bounds(rows, p_s, p_q, iters)]
+        worst = self.within_quantization(
+            leaves(remat["params"]), leaves(plain["params"]), bounds,
+            "the recomputing round")
+        gb = 1e-9
+        print(f"   4 groups x 2 steps, batch {shp['batch']} x {shp['seq']}: "
+              f"local_loss {float(plain['metrics']['local_loss']):.7g} "
+              f"plain, within {d_loss:.3g} with loss_chunk=32 and remat; "
+              f"params within {worst:.3g} (the gather_q rule); ms per "
+              f"round plain {plain['ms']:.1f}, remat {remat['ms']:.1f}; "
+              f"max_memory_allocated plain {plain['peak'] * gb:.3f} GB "
+              f"({plain['above'] * gb:.3f} above the inputs), remat "
+              f"{remat['peak'] * gb:.3f} GB ({remat['above'] * gb:.3f}); "
+              f"B launches {per_round} a round [{self.card()}]")
+        self.dryrun["remat_round"] = {
+            k: {"ms": v["ms"], "max_memory_allocated": v["peak"],
+                "above_inputs": v["above"]} for k, v in res.items()}
+        self.dryrun["remat_round"]["loss_diff"] = d_loss
+        self.dryrun["remat_round"]["param_diff"] = worst
+        del res, plain, remat, rows
+        if card:
+            torch.cuda.empty_cache()
+
+    # -- phase 45 -----------------------------------------------------------
+    def dryrun_host(self):
+        """``python -m repro_torch.launch.dryrun`` on this host, in
+        processes of their own (each joins a fake world): Qwen3-1.7B at
+        the four input shapes on the 16 x 16 mesh, its decode_32k on 2 x
+        16 x 16, and Mamba2-370M's long_500k."""
+        import tempfile
+        runs = [("qwen3_1_7b", "all", False),
+                ("qwen3_1_7b", "decode_32k", True),
+                ("mamba2_370m", "long_500k", False)]
+        if self.trainer_smoke:     # a rehearsal: the cheap records only
+            runs = [("qwen3_1_7b", "decode_32k", False),
+                    ("mamba2_370m", "long_500k", False)]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        recs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = []
+            t0 = time.perf_counter()
+            try:
+                for i, (arch, shape, pod) in enumerate(runs):
+                    out = os.path.join(tmp, f"dryrun{i}.json")
+                    argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", arch, "--shape", shape, "--out",
+                            out] + (
+                                ["--multi-pod"] if pod else [])
+                    procs.append((out, subprocess.Popen(
+                        argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT, text=True)))
+                for out, p in procs:
+                    log, _ = p.communicate(timeout=900)
+                    self.expect(p.returncode == 0,
+                                f"the dry run exited {p.returncode}:\n"
+                                f"{log[-3000:]}")
+                    with open(out) as f:
+                        recs += json.load(f)
+            finally:
+                for _, p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+        gb = 1e-9
+        for r in recs:
+            self.expect("error" not in r, f"the dry run failed on "
+                        f"{r['arch']} {r['shape']} {r['mesh']}: "
+                        f"{r.get('error')}")
+            mem = r["memory"]
+            print(f"   {r['arch']:12s} {r['shape']:12s} {r['mesh']:8s} "
+                  f"{r['step']:8s} arguments "
+                  f"{mem['argument_size_in_bytes'] * gb:9.3f} GB (rules' "
+                  f"block {mem['rules_block_size_in_bytes'] * gb:.3f}), "
+                  f"temp {mem['temp_size_in_bytes'] * gb:10.3f} GB, "
+                  f"{r['cost']['flops'] / 1e12:10.3f} TFLOP, collectives "
+                  f"{r['collectives']['total'] * gb:.3f} GB a rank "
+                  f"(traced in {r['trace_s']:.1f} s)")
+        print(f"   {len(recs)} records, no error, in {wall:.1f} s of wall "
+              f"(counts from shapes on the host, not times; the card is "
+              f"not used)")
+        self.dryrun["records"] = recs
+        self.dryrun["wall_s"] = wall
+
+    # -- phase 46 -----------------------------------------------------------
+    def dryrun_vs_card(self):
+        """``launch/dryrun.py::trace_step`` with no mesh on two steps, then
+        the same steps on the card: the predicted argument bytes against
+        the inputs' and the predicted peak (arguments + temp) against
+        ``max_memory_allocated``."""
+        np, torch = self.np, self.torch
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch import specs as S
+        from repro_torch.models import transformer as T
+        from repro_torch.utils.tree import leaves
+        card = self.dev.type == "cuda"
+        (B, L), (Bt, St) = self.dryrun_shapes
+        gen = torch.Generator(device=self.dev)
+        rng = np.random.RandomState(46)
+
+        def built(make):
+            """``make()``'s tensors and the bytes they hold: on the card
+            the caching allocator's requested and allocated bytes that
+            ``make`` leaves behind (its temporaries freed); off it, the
+            distinct storages' bytes (a rehearsal measures nothing)."""
+            if card:
+                self.sync()
+                torch.cuda.empty_cache()
+                st = torch.cuda.memory_stats()
+                r0 = st["requested_bytes.all.current"]
+                a0 = st["allocated_bytes.all.current"]
+            args = make()
+            if card:
+                self.sync()
+                st = torch.cuda.memory_stats()
+                return args, (st["requested_bytes.all.current"] - r0,
+                              st["allocated_bytes.all.current"] - a0)
+            n = sum({t.untyped_storage().data_ptr():
+                     t.untyped_storage().nbytes()
+                     for t in leaves(dict(enumerate(args)))
+                     if isinstance(t, torch.Tensor)}.values())
+            return args, (n, n)
+
+        steps = {}
+
+        def decode_args():
+            qp = T.init_model(self.qwen_cfg, gen.manual_seed(0), self.dev,
+                              dtype=S.PARAM_DTYPE)
+            return [qp, {"tokens": torch.as_tensor(rng.randint(
+                0, self.qwen_cfg.vocab, (B, 1)), dtype=torch.int32,
+                device=self.dev)},
+                torch.tensor(L - 1, dtype=torch.int32, device=self.dev),
+                T.init_decode_state(self.qwen_cfg, B, L, S.PARAM_DTYPE,
+                                    device=self.dev)]
+
+        steps["decode"] = (
+            f"{self.qwen_cfg.name} decode_step, batch {B}, a {L}-slot "
+            f"cache", D.build_decode(self.qwen_cfg, "decode_32k", None),
+            *built(decode_args))
+
+        def train_args():
+            sp = T.init_model(self.smollm_cfg, gen.manual_seed(1), self.dev,
+                              dtype=S.PARAM_DTYPE)
+            return [sp, {"tokens": torch.as_tensor(rng.randint(
+                0, self.smollm_cfg.vocab, (Bt, St)), dtype=torch.int32,
+                device=self.dev)}]
+
+        steps["train"] = (
+            f"{self.smollm_cfg.name} plain step, batch {Bt} x {St}, remat",
+            D.build_train(self.smollm_cfg, None, None, plain=True,
+                          remat=True)[0],
+            *built(train_args))
+        out = {}
+        for key, (what, fn, args, (held, alloc)) in steps.items():
+            pred = D.trace_step(fn, args)
+            mem = pred["memory"]
+            self.expect(mem["argument_size_in_bytes"] == held,
+                        f"{key}: predicted argument bytes "
+                        f"{mem['argument_size_in_bytes']} != the "
+                        f"{held} the inputs took")
+            predicted = mem["argument_size_in_bytes"] + \
+                mem["temp_size_in_bytes"]
+            with torch.no_grad() if key == "decode" else \
+                    contextlib.nullcontext():
+                res = fn(*args)                   # warm-up
+                del res
+                self.sync()
+                if card:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                # what else the process holds besides these inputs
+                other = (torch.cuda.memory_allocated() - alloc) if card \
+                    else 0
+                t0 = time.perf_counter()
+                res = fn(*args)
+                self.sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                peak = (torch.cuda.max_memory_allocated() - other) if card \
+                    else predicted
+                del res
+            rel = abs(predicted - peak) / peak
+            tflops = pred["cost"]["flops"] / (ms * 1e-3) / 1e12
+            print(f"   {what}: arguments {held} B requested of the "
+                  f"caching allocator ({alloc} B allocated), predicted "
+                  f"exactly; predicted peak (arguments + temp) "
+                  f"{predicted / 1e9:.4f} GB, max_memory_allocated for "
+                  f"the step {peak / 1e9:.4f} GB ({predicted - peak:+d} B, "
+                  f"{rel * 100:.2f}% apart); "
+                  f"{pred['cost']['flops'] / 1e12:.4f} TFLOP predicted in "
+                  f"{ms:.2f} ms: {tflops:.2f} TFLOP/s achieved "
+                  f"[{self.card()}]")
+            self.expect(rel <= 0.15, f"{key}: the predicted peak is "
+                        f"{rel * 100:.1f}% off the measured one")
+            out[key] = dict(argument_bytes=held, allocated_bytes=alloc,
+                            predicted_peak=predicted,
+                            measured_peak=peak, ms=ms,
+                            flops=pred["cost"]["flops"], tflops=tflops)
+        self.dryrun["vs_card"] = out
+        del steps, args
+        if card:
+            torch.cuda.empty_cache()
+
+    # -- phase 47 -----------------------------------------------------------
+    def example_twins(self):
+        """The five example twins of ``examples/torch_*.py`` in this
+        process at their smallest settings, each with the kernel counts
+        zeroed before it and read after."""
+        import io
+        import runpy
+        card = self.dev.type == "cuda"
+        twins = [t for t in [
+            ("torch_quickstart.py", ["--budget", "2", "--samples", "200"],
+             ()),
+            ("torch_serve_batch.py", [], ("ssd_scan",)),
+            ("torch_compression_kernel_demo.py", [],
+             ("fused_pack", "topk_quant")),
+            ("torch_fl_end_to_end.py", ["--budget", "2", "--devices", "6",
+                                        "--samples", "300"], ()),
+            ("torch_multipod_fed_round.py", [], ("topk_quant",)),
+        ] if t[0] in self.twins]
+        for name, extra, kernels in twins:
+            path = os.path.join(ROOT, "examples", name)
+            argv, sys.argv = sys.argv, [path, "--device", str(self.dev)] \
+                + extra
+            buf = io.StringIO()
+            self.zero_counts()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    runpy.run_path(path, run_name="__main__")
+            finally:
+                sys.argv = argv
+            self.sync()
+            wall = time.perf_counter() - t0
+            launches = self.read_counts()
+            lines = buf.getvalue().strip().splitlines()
+            self.expect(lines, f"{name} printed nothing")
+            for k in kernels:
+                self.expect(launches[k] > 0 if card else launches[k] == 0,
+                            f"{name}: kernel {k} launches {launches}")
+            print(f"   {name} {' '.join(extra)}: {len(lines)} lines in "
+                  f"{wall:.1f} s, launches {launches}; last: {lines[-1]}")
+
     # -- the mesh slice on several cards (python3 chip_smoke.py --world 4) ---
     def world_server(self, mesh):
         """The sharded server over the whole world (and over 2 shards, each
@@ -4263,6 +4607,12 @@ def main() -> int:
          s.fed_mesh),
         ("42. the expert-parallel MoE on Jamba's group", s.ep_jamba),
         ("43. the sequence-sharded decode: Qwen3-1.7B", s.seqshard_qwen),
+        ("44. the federated round with the chunked loss and remat: "
+         "SmolLM-135M", s.fed_remat),
+        ("45. the dry run on this host: Qwen3-1.7B and Mamba2-370M",
+         s.dryrun_host),
+        ("46. the dry run held to the card", s.dryrun_vs_card),
+        ("47. the five example twins on the card", s.example_twins),
     ]
     chosen = None
     if sys.argv[1:2] == ["--phases"]:

@@ -194,3 +194,20 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _config_module(arch).smoke()
+
+
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -299,3 +299,10 @@ def expected_pytree_wire_bytes(tree: Any, p_s: float, p_q: int) -> int:
     return (sum(expected_tensor_wire_bits(_numel(x), p_s, p_q)
                 for x in leaves(tree)) + 7) // 8
 
+
+def roundtrip_pytree(tree: Dict[str, Any], p_s: float, p_q: int,
+                     rng: Optional[np.random.RandomState] = None
+                     ) -> Tuple[Dict[str, np.ndarray], int]:
+    """compress -> wire bytes -> decompress (the lossy channel)."""
+    c = compress_pytree(tree, p_s, p_q, rng)
+    return decompress_pytree(c), pytree_wire_bytes(c)

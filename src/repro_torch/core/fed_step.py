@@ -206,7 +206,9 @@ def make_fed_train_step(loss_fn: Callable, fed: FedConfig) -> Callable:
         names = paths(params)
         w0s, ds = leaves(params), leaves(delta)
         if fed.schedule == "gather_q":
-            rows = [d.reshape(G, -1) for d in ds]
+            # f32 rows, so the channel dequantizes to f32 whatever the
+            # params' dtype (the JAX package's compress_delta casts)
+            rows = [d.reshape(G, -1).to(torch.float32) for d in ds]
             if fed.p_s < 1.0:
                 dqs = ops.threshold_channel_leaves(
                     rows, fed.p_s, fed.p_q, fed.threshold_iters)
@@ -269,13 +271,12 @@ def _mesh_round(local, params, gbatch, staleness, fed: FedConfig,
     blocks = [local_block(wl - w0[None], (None,) + sp, mesh)
               for wl, w0, sp in zip(leaves(w_local), w0s, specs)]
     w0_loc = [local_block(w0, sp, mesh) for w0, sp in zip(w0s, specs)]
-    rows = [d.reshape(g_loc, -1) for d in blocks]
+    rows = [d.reshape(g_loc, -1).to(torch.float32) for d in blocks]
     metrics = {"alpha_t": a_t}
 
     if fed.schedule == "psum":
         # this rank's weighted partial sums, one flat vector
-        flat = torch.cat([torch.einsum("gn,g->n", r.to(torch.float32),
-                                       wts[mine]) for r in rows])
+        flat = torch.cat([torch.einsum("gn,g->n", r, wts[mine]) for r in rows])
         if fgroup is not None:
             dist.all_reduce(flat, group=fgroup)
         us = list(torch.split(flat, [r.shape[1] for r in rows]))
@@ -283,7 +284,7 @@ def _mesh_round(local, params, gbatch, staleness, fed: FedConfig,
         if fed.schedule == "gather_q":
             dq, metrics["wire_bytes"] = _gather_q(rows, fed, fgroup, n_fed)
         else:
-            flat = torch.cat([r.to(torch.float32) for r in rows], dim=1)
+            flat = torch.cat(rows, dim=1)
             dq = all_gather_dim(flat, 0, fgroup, n_fed)
             metrics["wire_bytes"] = flat.numel() * 4
             dq = list(torch.split(dq, [r.shape[1] for r in rows], dim=1))

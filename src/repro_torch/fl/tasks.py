@@ -184,6 +184,10 @@ def _lm_family_fns(cfg: ModelConfig):
     return init_params, loss, eval_metric, cohort_loss, forward
 
 
+# the dense LM task's functions by name, as the JAX package exports them
+init_lm, lm_task_loss, lm_accuracy, lm_cohort_loss, lm_forward = \
+    _lm_family_fns(_LM_CFG)
+
 for _name, _cfg in (("transformer_lm", _LM_CFG), ("moe_lm", _MOE_LM_CFG),
                     ("ssm_lm", _SSM_LM_CFG)):
     _init, _loss, _metric, _cohort, _fwd = _lm_family_fns(_cfg)

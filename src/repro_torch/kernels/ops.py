@@ -14,10 +14,9 @@ import torch
 from repro_torch.kernels.fused_pack import pack_leaves
 from repro_torch.kernels.ssd_scan import ssd_chunked_kernel
 from repro_torch.core.compression import FLOAT_BITS
-from repro_torch.kernels.topk_quant import (DEFAULT_BLOCK, check_channel,
-                                            threshold_channel_cuda,
-                                            threshold_channel_plain,
-                                            topk_quant_rows)
+from repro_torch.kernels.topk_quant import (  # noqa: F401  (re-exported)
+    DEFAULT_BLOCK, check_channel, dequant, threshold_channel_cuda,
+    threshold_channel_plain, topk_quant, topk_quant_rows)
 from repro_torch.utils.tree import leaves as tree_leaves
 
 

@@ -88,7 +88,7 @@ def ssd_intra_chunk_plain(xb: torch.Tensor, b: torch.Tensor,
     cb = cf @ bf.transpose(1, 2)                               # (gb, L, L)
     tril = torch.ones((L, L), dtype=torch.bool, device=xb.device).tril()
     diff = torch.where(tril, cm[..., :, None] - cm[..., None, :],
-                       torch.tensor(float("-inf"), device=xb.device))
+                       torch.full((), float("-inf"), device=xb.device))
     y = (cb[:, None] * torch.exp(diff)) @ x                    # (gb, H, L, P)
     d2e = torch.exp(cm[..., -1:] - cm)                         # (gb, H, L)
     s = (bf[:, None] * d2e[..., None]).transpose(-1, -2) @ x   # (gb, H, N, P)
@@ -115,11 +115,12 @@ def _ssd_intra_chunk_cuda(xb, b, c, cum, heads):
 
 
 def _intra_chunk(xb, b, c, cum, heads):
-    """Kernel C on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel C on CUDA tensors, the plain version on CPU tensors (and on
+    meta tensors, the dry run's shapes, ``launch/dryrun.py``)."""
     if xb.device.type == "cuda":
         return _ssd_intra_chunk_cuda(xb.contiguous(), b.contiguous(),
                                      c.contiguous(), cum.contiguous(), heads)
-    if xb.device.type == "cpu":
+    if xb.device.type in ("cpu", "meta"):
         return ssd_intra_chunk_plain(xb, b, c, cum, heads)
     raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, not {xb.device}")
 

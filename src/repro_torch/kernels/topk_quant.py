@@ -322,7 +322,7 @@ def check_channel(leaves: Sequence[torch.Tensor], p_q: int,
         raise ValueError(f"p_q must be in [2, 16] or >= 32, got {p_q}")
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
-    if device.type not in ("cuda", "cpu"):
+    if device.type not in ("cuda", "cpu", "meta"):   # meta: the dry run
         raise ValueError(f"the threshold channel runs on cuda or cpu, not "
                          f"{device}")
     return device

@@ -7,14 +7,15 @@ store needs no launcher and no port; a wider world comes from
 with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and ``REPRO_INIT_METHOD`` in
 their environment (a ``file://`` store, so that no TCP port is taken), or
 from ``torchrun`` (``env://``).  Then :func:`make_host_mesh` builds the
-``("data", "model")`` mesh.
-
-The JAX package's ``make_production_mesh`` (the TPU v5e shapes (16, 16)
-and (2, 16, 16)) arrives with the dry run, its only user; the v5e
-constants beside it are the TPU's and are not carried.
+``("data", "model")`` mesh, and :func:`make_production_mesh` the JAX
+package's production shapes, (16, 16) or (2, 16, 16), over a world of
+256 or 512 ranks (the dry run's fake world, ``launch/dryrun.py``).  The
+TPU v5e constants beside it in the JAX package are the TPU's and are not
+carried.
 """
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import subprocess
@@ -66,6 +67,24 @@ def make_host_mesh(data: int = 1, model: int = 1,
     device = device or ("cuda" if "nccl" in dist.get_backend() else "cpu")
     return init_device_mesh(device, (data, model),
                             mesh_dim_names=("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh over the whole initialized world: (16, 16) over
+    ``("data", "model")``, or with ``multi_pod`` (2, 16, 16) over
+    ``("pod", "data", "model")``.  Raises unless the world has the mesh's
+    256 or 512 ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"the production mesh needs a world of 256 ranks "
+                         f"(16, 16) or 512 ranks (2, 16, 16); "
+                         f"multi_pod={multi_pod} wants {math.prod(shape)}, "
+                         f"the world has {world}")
+    device = "cuda" if "nccl" in dist.get_backend() else "cpu"
+    return init_device_mesh(device, shape, mesh_dim_names=axes)
 
 
 def spawn_world(argv: Sequence[str], world: int, *, timeout: float = 600.0,

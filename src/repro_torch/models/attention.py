@@ -24,7 +24,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, head_rmsnorm, rotary
+from repro_torch.models.layers import (dense_init, head_rmsnorm,
+                                       init_device, rotary)
 
 NEG_INF = -1e30
 
@@ -49,7 +50,7 @@ def attn_init(generator: torch.Generator, cfg, dtype=torch.float32,
     if cfg.qk_norm and not cross:
         for name in ("q_norm", "k_norm"):
             p[name] = torch.ones(tuple(lead) + (hd,), dtype=dtype,
-                                 device=generator.device)
+                                 device=init_device(generator))
     return p
 
 

@@ -18,10 +18,20 @@ import torch
 import torch.nn.functional as F
 
 
-def uniform_init(generator: torch.Generator, shape, scale: float,
+def init_device(generator: Optional[torch.Generator]):
+    """The device an initializer makes its leaves on: ``generator``'s, or
+    the default one for None."""
+    return None if generator is None else generator.device
+
+
+def uniform_init(generator: Optional[torch.Generator], shape, scale: float,
                  dtype=torch.float32) -> torch.Tensor:
-    """Uniform on [-scale, scale), drawn on ``generator``'s device."""
-    u = torch.empty(shape, dtype=dtype, device=generator.device)
+    """Uniform on [-scale, scale), drawn on ``generator``'s device.  With
+    no generator the leaf is only made (``torch.empty``, no draw): the
+    shape-only trees of ``launch/specs.py``, under a fake-tensor mode."""
+    u = torch.empty(shape, dtype=dtype, device=init_device(generator))
+    if generator is None:
+        return u
     return u.uniform_(-scale, scale, generator=generator)
 
 

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rmsnorm, rmsnorm_init, uniform_init
+from repro_torch.models.layers import (init_device, rmsnorm, rmsnorm_init,
+                                       uniform_init)
 
 Params = Dict[str, torch.Tensor]
 
@@ -34,7 +35,7 @@ def ssm_init(generator: torch.Generator, cfg, dtype=torch.float32,
     on leading axes (the layer-stacked layout)."""
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     w = cfg.ssm_conv_width
-    dev = generator.device
+    dev = init_device(generator)
     lead = tuple(lead)
     d_in_proj = 2 * di + 2 * n + h          # z, x, B, C, dt
     a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32,
@@ -112,7 +113,7 @@ def ssd_chunked(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,L,L,H)
     mask = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()
     diff = torch.where(mask[None, None, :, :, None], diff,
-                       torch.tensor(float("-inf"), device=xh.device))
+                       torch.full((), float("-inf"), device=xh.device))
     m = torch.exp(diff)
     y_intra = torch.einsum("bclm,bclmh,bcmhp->bclhp", cb, m, xb)
 

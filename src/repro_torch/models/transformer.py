@@ -29,8 +29,8 @@ The layers run in a Python loop over the leading axis (the JAX package's
 hd), "ssm": (n_groups, attn_every - 1, B, ...)}``.
 
   init_model(cfg, generator, device)      -> params
-  forward(params, batch, cfg)             -> (logits, aux)
-  lm_loss(params, batch, cfg)             -> (loss, {"nll", "lb"})
+  forward(params, batch, cfg, remat=)     -> (logits, aux)
+  lm_loss(params, batch, cfg, remat=, loss_chunk=) -> (loss, {"nll", "lb"})
   prefill(params, batch, cfg)             -> (last-position logits, cache)
   encdec_prefill(params, batch, cfg, cache_len) -> the same, enc-dec
   extend_cache(cache, target_len)         -> cache with room to decode
@@ -39,6 +39,12 @@ hd), "ssm": (n_groups, attn_every - 1, B, ...)}``.
 
 ``decode_step`` takes ``pos`` as an int or as a ``(B,)`` tensor of
 per-row positions.
+
+``remat=True`` (the JAX package's per-layer ``jax.checkpoint``) and the
+chunked loss recompute through :class:`_Recompute`, which keeps only a
+block's inputs and recomputes it in the backward pass; unlike
+``torch.utils.checkpoint`` it also runs inside ``torch.func`` transforms
+(the federated round's ``vmap`` of ``grad``).
 """
 from __future__ import annotations
 
@@ -46,20 +52,90 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed_init, embed_lookup,
-                                       lm_head, mlp, mlp_init, rmsnorm,
-                                       rmsnorm_init)
-from repro_torch.utils.tree import resolve_device, tree_map, tree_stack
+                                       init_device, lm_head, mlp, mlp_init,
+                                       rmsnorm, rmsnorm_init)
+from repro_torch.utils.tree import (leaves, paths, resolve_device,
+                                   tree_map, tree_stack, unflatten)
 
 Tree = Dict[str, Any]
 
 def _layer(tree: Tree, i: int) -> Tree:
     return tree_map(lambda a: a[i], tree)
+
+
+class _Recompute(torch.autograd.Function):
+    """``fn(*tensors)``, a tuple of tensors, computed with no graph; only
+    the inputs are saved, and the backward recomputes ``fn`` under
+    ``torch.func.vjp``.  With ``setup_context`` and a generated ``vmap``
+    rule it runs inside ``torch.func.grad`` and ``vmap``, where
+    ``torch.utils.checkpoint``'s saved-tensor hooks cannot (the pattern
+    of ``kernels/ssd_scan.py::SSDIntraChunk``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *tensors):
+        return fn(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ins = ctx.saved_tensors
+        diff = [i for i, t in enumerate(ins)
+                if t.is_floating_point() and ctx.needs_input_grad[i + 1]]
+
+        def fn(*d):
+            full = list(ins)
+            for i, t in zip(diff, d):
+                full[i] = t
+            return ctx.fn(*full)
+
+        _, vjp = torch.func.vjp(fn, *(ins[i] for i in diff))
+        out = [None] * len(ins)
+        # no graph of this backward: ``torch.func.grad`` differentiates
+        # with ``create_graph``, which would keep the recomputed
+        # activations alive to its end
+        for i, g in zip(diff, vjp(tuple(grads), create_graph=False)):
+            out[i] = g
+        return (None,) + tuple(out)
+
+
+def _recompute(fn, *args):
+    """``fn(*args)`` through :class:`_Recompute`: each of ``args`` a
+    tensor, None, or a (nested) dict of tensors; ``fn`` returns a tuple of
+    tensors."""
+    plan, flat = [], []
+    for a in args:
+        if isinstance(a, dict):
+            plan.append(paths(a))
+            flat.extend(leaves(a))
+        else:
+            plan.append(a is not None)
+            if a is not None:
+                flat.append(a)
+
+    def run(*ts):
+        it = iter(ts)
+        back = []
+        for p in plan:
+            if p is False:
+                back.append(None)
+            elif p is True:
+                back.append(next(it))
+            else:
+                back.append(unflatten(p, [next(it) for _ in p]))
+        return tuple(fn(*back))
+
+    return _Recompute.apply(run, *flat)
 
 
 def _n_blocks(cfg) -> int:
@@ -75,8 +151,8 @@ def _is_moe_position(cfg, p: int) -> bool:
 # init
 # ======================================================================
 def _init_uniform_layers(g: torch.Generator, cfg, dtype) -> Tree:
-    lead = (cfg.n_layers,)
-    p: Tree = {"norm1": rmsnorm_init(cfg.d_model, dtype, g.device, lead)}
+    lead, dev = (cfg.n_layers,), init_device(g)
+    p: Tree = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev, lead)}
     if cfg.is_ssm_only:
         p["ssm"] = ssm_mod.ssm_init(g, cfg, dtype, lead)
         return p
@@ -88,21 +164,21 @@ def _init_uniform_layers(g: torch.Generator, cfg, dtype) -> Tree:
                             gated=cfg.gated_mlp, lead=lead)
     else:
         return p
-    p["norm2"] = rmsnorm_init(cfg.d_model, dtype, g.device, lead)
+    p["norm2"] = rmsnorm_init(cfg.d_model, dtype, dev, lead)
     return p
 
 
 def _init_hybrid_groups(g: torch.Generator, cfg, dtype) -> Tree:
     """Every Jamba group at once: (attn_every - 1) Mamba + 1 attention;
     the FFN dense or MoE by position."""
-    ae, ng = cfg.attn_every, _n_blocks(cfg)
+    ae, ng, dev = cfg.attn_every, _n_blocks(cfg), init_device(g)
     n_moe = ae // cfg.moe_every
     n_dense = ae - n_moe
     p: Tree = {
         "ssm": ssm_mod.ssm_init(g, cfg, dtype, (ng, ae - 1)),
         "attn": attn.attn_init(g, cfg, dtype, lead=(ng,)),
-        "norm1": rmsnorm_init(cfg.d_model, dtype, g.device, (ng, ae)),
-        "norm2": rmsnorm_init(cfg.d_model, dtype, g.device, (ng, ae)),
+        "norm1": rmsnorm_init(cfg.d_model, dtype, dev, (ng, ae)),
+        "norm2": rmsnorm_init(cfg.d_model, dtype, dev, (ng, ae)),
     }
     if n_dense:
         p["ffn"] = mlp_init(g, cfg.d_model, cfg.d_ff, dtype,
@@ -116,14 +192,14 @@ def _init_encdec_layers(g: torch.Generator, cfg, dtype, n: int,
                         decoder: bool) -> Tree:
     """``n`` encoder (or decoder, with the cross attention) layers,
     stacked."""
-    lead = (n,)
-    p: Tree = {"norm1": rmsnorm_init(cfg.d_model, dtype, g.device, lead),
+    lead, dev = (n,), init_device(g)
+    p: Tree = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev, lead),
                "attn": attn.attn_init(g, cfg, dtype, lead=lead),
-               "norm_ffn": rmsnorm_init(cfg.d_model, dtype, g.device, lead),
+               "norm_ffn": rmsnorm_init(cfg.d_model, dtype, dev, lead),
                "ffn": mlp_init(g, cfg.d_model, cfg.d_ff, dtype,
                                gated=cfg.gated_mlp, lead=lead)}
     if decoder:
-        p["norm_x"] = rmsnorm_init(cfg.d_model, dtype, g.device, lead)
+        p["norm_x"] = rmsnorm_init(cfg.d_model, dtype, dev, lead)
         p["xattn"] = attn.attn_init(g, cfg, dtype, cross=True, lead=lead)
     return p
 
@@ -133,11 +209,12 @@ def init_model(cfg, generator: torch.Generator, device=None,
     """Random weights with the JAX ``init_model``'s distributions and
     layouts, drawn from ``generator`` on its own device (each stacked leaf
     in one draw), returned on ``device`` (the card unless ``device`` names
-    another)."""
-    device = resolve_device(device)
+    another).  A ``generator`` of None makes the leaves without a draw
+    (``launch/specs.py::param_specs``, under a fake-tensor mode)."""
+    device, dev = resolve_device(device), init_device(generator)
     params: Tree = {
         "embed": embed_init(generator, cfg.vocab, cfg.d_model, dtype),
-        "final_norm": rmsnorm_init(cfg.d_model, dtype, generator.device),
+        "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
@@ -147,8 +224,7 @@ def init_model(cfg, generator: torch.Generator, device=None,
             generator, cfg, dtype, cfg.n_enc_layers, decoder=False)
         params["layers"] = _init_encdec_layers(generator, cfg, dtype,
                                                cfg.n_layers, decoder=True)
-        params["enc_norm"] = rmsnorm_init(cfg.d_model, dtype,
-                                          generator.device)
+        params["enc_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
     else:
         params["layers"] = (_init_hybrid_groups if cfg.is_hybrid else
                             _init_uniform_layers)(generator, cfg, dtype)
@@ -227,13 +303,24 @@ def _hybrid_group_block(x, gp, cfg, positions, window, collect_cache=False):
     return x, aux, kv
 
 
-def _run_stack(params, x, cfg, positions, window=0, collect_cache=False):
+def _run_stack(params, x, cfg, positions, window=0, collect_cache=False,
+               remat=False):
+    """The layer stack.  ``remat`` recomputes each block in the backward
+    pass (the JAX package's per-layer ``jax.checkpoint``), without a
+    cache only, as there."""
     block = _hybrid_group_block if cfg.is_hybrid else _uniform_block
+    remat = remat and not collect_cache
     aux = torch.zeros((), device=x.device)
     caches = []
     for i in range(_n_blocks(cfg)):
-        x, lb, kv = block(x, _layer(params["layers"], i), cfg, positions,
-                          window, collect_cache)
+        lp = _layer(params["layers"], i)
+        if remat:
+            x, lb = _recompute(
+                lambda x_, lp_, pos_: block(x_, lp_, cfg, pos_, window)[:2],
+                x, lp, positions)
+            kv = None
+        else:
+            x, lb, kv = block(x, lp, cfg, positions, window, collect_cache)
         aux = aux + lb
         caches.append(kv)
     return x, aux, (tree_stack(caches) if collect_cache else None)
@@ -300,27 +387,30 @@ def _embed(params, batch, cfg):
     return x, _positions(x)
 
 
-def _trunk(params, batch, cfg, window=0):
+def _trunk(params, batch, cfg, window=0, remat=False):
     """The stack's last hidden states at the text positions (before the
-    final norm), and the load-balance loss."""
+    final norm), and the load-balance loss.  ``remat`` applies to the
+    decoder stack (the encoder-decoder's layers run as they are, as in
+    the JAX package)."""
     tokens = batch["tokens"]
     if cfg.is_encoder_decoder:
         enc_out = _encoder(params, batch["frames"], cfg)
         x, _ = _decoder_encdec(params, tokens, enc_out, cfg)
         return x, torch.zeros((), device=x.device)
     x, positions = _embed(params, batch, cfg)
-    x, aux, _ = _run_stack(params, x, cfg, positions, window)
+    x, aux, _ = _run_stack(params, x, cfg, positions, window, remat=remat)
     if cfg.n_patches:
         x = x[:, -tokens.shape[1]:, :]
     return x, aux
 
 
-def forward(params, batch: Dict[str, torch.Tensor], cfg, window: int = 0
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params, batch: Dict[str, torch.Tensor], cfg, window: int = 0,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {tokens (B, S), and patches (B, n_patches, D) for a VLM or
     frames (B, enc_seq, D) for an encoder-decoder} -> (logits (B, S,
-    vocab) f32 over the token positions, aux)."""
-    x, aux = _trunk(params, batch, cfg, window)
+    vocab) f32 over the token positions, aux).  ``remat``: recompute each
+    layer in the backward pass."""
+    x, aux = _trunk(params, batch, cfg, window, remat)
     return _head(params, x, cfg), aux
 
 
@@ -359,24 +449,25 @@ def _chunk_nll(xc, tc, vc, table, head):
 
 
 def lm_loss(params, batch, cfg, window: int = 0, lb_weight: float = 0.01,
-            loss_chunk: int = 0
+            remat: bool = False, loss_chunk: int = 0
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy plus ``lb_weight`` times MoE's
     load-balance loss.
 
     ``loss_chunk > 0`` computes it in sequence chunks without holding the
     full (B, S, vocab) f32 logits: each chunk's head and softmax are
-    recomputed in the backward pass (``torch.utils.checkpoint``), the
-    chunks padded to whole ones and the padding masked out."""
+    recomputed in the backward pass (:class:`_Recompute`), the chunks
+    padded to whole ones and the padding masked out.  ``remat``: recompute
+    each layer in the backward pass."""
     tokens = batch["tokens"]
     if loss_chunk <= 0:
-        logits, aux = forward(params, batch, cfg, window)
+        logits, aux = forward(params, batch, cfg, window, remat)
         logp = torch.log_softmax(logits[:, :-1, :], dim=-1)
         nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
         loss = nll.mean()
         return loss + lb_weight * aux, {"nll": loss, "lb": aux}
 
-    x, aux = _trunk(params, batch, cfg, window)
+    x, aux = _trunk(params, batch, cfg, window, remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else None
     head = params.get("lm_head")
@@ -392,9 +483,9 @@ def lm_loss(params, batch, cfg, window: int = 0, lb_weight: float = 0.01,
                                  B, n_chunks, C)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
-        total = total + checkpoint(_chunk_nll, xs[:, i], tg[:, i],
-                                   valid[:, i], table, head,
-                                   use_reentrant=False)
+        total = total + _recompute(
+            lambda *a: (_chunk_nll(*a),), xs[:, i], tg[:, i], valid[:, i],
+            table, head)[0]
     loss = total / (B * Sm1)
     return loss + lb_weight * aux, {"nll": loss, "lb": aux}
 

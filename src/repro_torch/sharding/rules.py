@@ -22,6 +22,7 @@ import threading
 import weakref
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -163,6 +164,15 @@ def axis_index(mesh, axis: AxisVal) -> Tuple[int, int]:
     return index, size
 
 
+def _rank_grid(mesh) -> np.ndarray:
+    """The mesh's grid of ranks on the host.  A ``DeviceMesh`` makes its
+    tensor at each access, so the dispatch modes (the dry run's fake
+    tensors and meters, ``launch/dryrun.py``) are set aside for it."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return np.array(mesh.mesh.tolist())
+
+
 def axis_group(mesh, axis: AxisVal) -> Tuple[Any, int, int]:
     """(process group, this rank's index, size) of ``axis`` on ``mesh``:
     the twin of an axis name in a ``shard_map`` body.  The group is None
@@ -175,11 +185,12 @@ def axis_group(mesh, axis: AxisVal) -> Tuple[Any, int, int]:
         return mesh.get_group(names[0]), index, size
     # the ranks that differ from this one only on ``names``, in its order
     coord = mesh.get_coordinate()
-    sub = mesh.mesh[tuple(slice(None) if d in names else coord[i]
-                          for i, d in enumerate(mesh.mesh_dim_names))]
+    sub = _rank_grid(mesh)[tuple(
+        slice(None) if d in names else coord[i]
+        for i, d in enumerate(mesh.mesh_dim_names))]
     order = [d for d in mesh.mesh_dim_names if d in names]
     ranks = tuple(int(r) for r in
-                  sub.permute(*[order.index(a) for a in names]).reshape(-1))
+                  sub.transpose([order.index(a) for a in names]).reshape(-1))
     key = (id(mesh), names)
     entry = _GROUPS.get(key)
     if entry is None or entry[0]() is not mesh:

@@ -199,3 +199,37 @@ def test_chip_smoke_mesh_phases_rehearse_on_cpu(capsys):
     assert smoke.mesh["fed"][8]["exact"] and smoke.mesh["fed"][4]["exact"]
     assert smoke.mesh["ep"]["err"] <= chip_smoke.EP_TOL
     assert smoke.mesh["seqshard"]["err"] <= chip_smoke.SEQSHARD_TOL
+
+
+def test_chip_smoke_dryrun_phases_rehearse_on_cpu(capsys):
+    """chip_smoke.py's phases 44-47 on CPU tensors at the smoke configs:
+    the recomputing federated round within the gather_q rule of the plain
+    one, the dry run in processes of its own (its two cheap records on a
+    rehearsal), the dry run's predictions held to a real run (here the CPU
+    run, whose arguments must still be predicted exactly), and two of the
+    example twins run in this process with their lines captured.  All
+    pass: each launch check expects 0 launches off the card."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500,
+                             ssm_smoke=True,
+                             twins=("torch_quickstart.py",
+                                    "torch_compression_kernel_demo.py"))
+    for phase in (smoke.fed_remat, smoke.dryrun_host, smoke.dryrun_vs_card,
+                  smoke.example_twins):
+        smoke.phase(phase.__name__, phase)
+    assert smoke.failures == []
+    out = capsys.readouterr().out
+    rr = smoke.dryrun["remat_round"]
+    assert rr["loss_diff"] <= 1e-4
+    recs = smoke.dryrun["records"]
+    assert [(r["arch"], r["shape"]) for r in recs] == [
+        ("qwen3_1_7b", "decode_32k"), ("mamba2_370m", "long_500k")]
+    assert all("error" not in r for r in recs)
+    for key in ("decode", "train"):
+        assert smoke.dryrun["vs_card"][key]["argument_bytes"] > 0
+    assert "torch_quickstart.py --budget 2 --samples 200: 4 lines" in out
+    assert "torch_compression_kernel_demo.py : 6 lines" in out
