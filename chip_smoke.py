@@ -252,12 +252,12 @@ Phases, in order; the script exits nonzero if any of them fails:
    keep the channel's rows): local losses within 1e-4, params within the
    CPU tests' gather_q rule, 3 launches of B a round; each round's ms
    and ``max_memory_allocated``.
-45. The dry run on this host (``launch/dryrun.py``, in processes of its
-   own, each joining a fake world of 256 or 512 ranks; the card is not
-   used): Qwen3-1.7B at the four input shapes on the 16 x 16 mesh, its
-   decode_32k on 2 x 16 x 16 and Mamba2-370M's long_500k; no error
-   record; each record's arguments, temp, TFLOP and collective bytes a
-   rank, and the wall.
+45. The dry run on this host (``launch/dryrun.py``, in a process of its
+   own joining a fake world of 256 ranks; the card is not used):
+   Qwen3-1.7B's decode_32k on the 16 x 16 mesh, no error, its arguments
+   equal to the rules' block (each rank holds its blocks of the
+   parameters); its arguments, temp, TFLOP and collective bytes a rank,
+   and the wall.  The whole grid is ``results/torch/dryrun.json``.
 46. The dry run held to the card: ``trace_step`` with no mesh on
    Qwen3-1.7B's ``decode_step`` (batch 8, a 4,096-slot cache, bf16) and
    SmolLM-135M's plain step (batch 8 x 512, ``remat=True``, bf16), then
@@ -270,7 +270,18 @@ Phases, in order; the script exits nonzero if any of them fails:
 47. The five example twins (``examples/torch_*.py``) in this process at
    their smallest settings, the kernel counts zeroed before each: kernels
    A and B launched by the compression demo, C by the serving demo, B by
-   the pod demo (a world of 1 under NCCL).  Then one JSON line of
+   the pod demo (a world of 1 under NCCL).
+48. Megatron tensor parallelism at full width, as rank 0 of a fake world
+   of 16 ranks (``launch/dryrun.py``'s ``"fake"`` process group) on a (1,
+   16) mesh: this rank's blocks of Qwen3-1.7B in bf16 on the card (GQA at
+   16: its one q head a rank, ``wk``/``wv`` cut through a head and
+   gathered for each layer; qk-norm; the tied vocabulary split), a
+   prefill of 4 x 512 and one federated round (``gather_q``, 4 groups x
+   1 step, 4 x 512 tokens, ``remat``): the bytes building each one's
+   inputs asks of the caching allocator equal to ``trace_step``'s
+   predicted arguments and the rules' block, the peak within 15% of the
+   prediction, kernel B's launches in the round, the ms.  The values are
+   not held (a fake group moves no data).  Then one JSON line of
    kernels, the card's ``nvidia-smi`` line, and the last line ``{"ok":
    true, "device": {...}}``.
 
@@ -531,6 +542,9 @@ class Smoke:
             ((8, 4096), (8, 512))
         # phase 47: the example twins it runs (a rehearsal may take fewer)
         self.twins = twins
+        # phase 48: rows, tokens a row and the fake world's model ranks
+        self.tp_shape = (4, 32, 4) if ssm_smoke else (4, 512, 16)
+        self.tp = {}
 
     def sync(self):
         if self.dev.type == "cuda":
@@ -3605,7 +3619,7 @@ class Smoke:
         from repro_torch.core import fed_step as FS
         from repro_torch.data import make_token_batch
         from repro_torch.models import transformer as T
-        from repro_torch.sharding.rules import Rules, use_rules
+        from repro_torch.sharding.rules import Rules, param_blocks, use_rules
         from repro_torch.utils.tree import leaves
         cfg, shp = self.smollm_cfg, self.train_shapes["smollm"]
         card = self.dev.type == "cuda"
@@ -3620,12 +3634,12 @@ class Smoke:
         n_leaves = len(leaves(w0))
         out = {}
 
-        def rounds(step, reps):
+        def rounds(step, reps, w=w0):
             ms, res = [], None
             for _ in range(reps):
                 self.sync()
                 t0 = time.perf_counter()
-                res = step(w0, batch, stale)
+                res = step(w, batch, stale)
                 self.sync()
                 ms.append((time.perf_counter() - t0) * 1e3)
             return ms, res
@@ -3648,8 +3662,10 @@ class Smoke:
                     self.time_wire(seen[0], fed)
                 del seen
                 self.zero_counts()
-                with use_rules(Rules(mesh)):
-                    ms_mesh, (p_m, m_m) = rounds(step, reps)
+                rules = Rules(mesh)     # a (1, 1) mesh: each block whole
+                with use_rules(rules):
+                    ms_mesh, (p_m, m_m) = rounds(step, reps,
+                                                 param_blocks(w0, rules))
                 launches = self.read_counts()
                 self.expect(launches["topk_quant"] == (per_round * reps
                                                        if card else 0),
@@ -3719,7 +3735,7 @@ class Smoke:
         np, torch = self.np, self.torch
         from repro_torch.models import moe as MoE
         from repro_torch.models import transformer as T
-        from repro_torch.sharding.rules import Rules, use_rules
+        from repro_torch.sharding.rules import Rules, param_blocks, use_rules
         cfg, shp = self.jamba_cfg, self.jamba_shape
         card = self.dev.type == "cuda"
         if card:
@@ -3739,17 +3755,18 @@ class Smoke:
         with torch.no_grad():
             ms_dense, (lg_dense, _) = self.timed(
                 lambda: T.prefill(params, {"tokens": toks}, cfg), 2)
-            with self.world() as mesh, use_rules(Rules(mesh)):
+            with self.world() as mesh, use_rules(Rules(mesh)) as rules:
+                blocks = param_blocks(params, rules)    # at (1, 1): whole
                 MoE.moe_apply = spy
                 try:
                     self.zero_counts()
-                    lg_ep, _ = T.prefill(params, {"tokens": toks}, cfg)
+                    lg_ep, _ = T.prefill(blocks, {"tokens": toks}, cfg)
                     self.sync()
                     launches = self.read_counts()
                 finally:
                     MoE.moe_apply = real
                 ms_ep, _ = self.timed(
-                    lambda: T.prefill(params, {"tokens": toks}, cfg), 2)
+                    lambda: T.prefill(blocks, {"tokens": toks}, cfg), 2)
                 p, x = seen[0]
                 y_ep, _ = MoE.moe_apply(p, x, cfg)
             y_dense, _ = MoE.moe_apply(p, x, cfg)
@@ -3793,7 +3810,7 @@ class Smoke:
     def seqshard_qwen(self):
         np, torch = self.np, self.torch
         from repro_torch.models import transformer as T
-        from repro_torch.sharding.rules import Rules, use_rules
+        from repro_torch.sharding.rules import Rules, param_blocks, use_rules
         cfg, shp = self.qwen_cfg, self.qwen_shape
         card = self.dev.type == "cuda"
         if card:
@@ -3803,16 +3820,16 @@ class Smoke:
         toks = torch.as_tensor(np.random.RandomState(43).randint(
             0, cfg.vocab, (B, S)), device=self.dev)
 
-        def run(shard):
+        def run(shard, w=params):
             with torch.no_grad():
-                logits, cache = T.prefill(params, {"tokens": toks}, cfg)
+                logits, cache = T.prefill(w, {"tokens": toks}, cfg)
                 cache = T.extend_cache(cache, S + gen)
                 t = logits[:, -1].argmax(-1)[:, None]
                 outs, ms, picked = [], [], []
                 for i in range(gen):
                     self.sync()
                     t0 = time.perf_counter()
-                    lg, cache = T.decode_step(params, t, S + i, cfg, cache,
+                    lg, cache = T.decode_step(w, t, S + i, cfg, cache,
                                               seq_shard_kv=shard)
                     self.sync()
                     ms.append((time.perf_counter() - t0) * 1e3)
@@ -3822,8 +3839,9 @@ class Smoke:
             return outs, ms, picked
 
         plain, ms_plain, tok_plain = run(False)
-        with self.world() as mesh, use_rules(Rules(mesh)):
-            shard, ms_shard, tok_shard = run(True)
+        with self.world() as mesh, use_rules(Rules(mesh)) as rules:
+            shard, ms_shard, tok_shard = run(True, param_blocks(params,
+                                                                rules))
         err = max(float((a - b).abs().max()) for a, b in zip(plain, shard))
         self.expect(err <= SEQSHARD_TOL, f"seqshard logits off by {err}")
         self.expect(tok_plain == tok_shard, "seqshard greedy tokens differ")
@@ -3927,17 +3945,12 @@ class Smoke:
 
     # -- phase 45 -----------------------------------------------------------
     def dryrun_host(self):
-        """``python -m repro_torch.launch.dryrun`` on this host, in
-        processes of their own (each joins a fake world): Qwen3-1.7B at
-        the four input shapes on the 16 x 16 mesh, its decode_32k on 2 x
-        16 x 16, and Mamba2-370M's long_500k."""
+        """``python -m repro_torch.launch.dryrun`` on this host, in a
+        process of its own (it joins a fake world): Qwen3-1.7B's
+        decode_32k on the 16 x 16 mesh, its arguments held to the rules'
+        block (the whole grid is ``results/torch/dryrun.json``)."""
         import tempfile
-        runs = [("qwen3_1_7b", "all", False),
-                ("qwen3_1_7b", "decode_32k", True),
-                ("mamba2_370m", "long_500k", False)]
-        if self.trainer_smoke:     # a rehearsal: the cheap records only
-            runs = [("qwen3_1_7b", "decode_32k", False),
-                    ("mamba2_370m", "long_500k", False)]
+        runs = [("qwen3_1_7b", "decode_32k", False)]
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
         recs = []
         with tempfile.TemporaryDirectory() as tmp:
@@ -3972,6 +3985,11 @@ class Smoke:
                         f"{r['arch']} {r['shape']} {r['mesh']}: "
                         f"{r.get('error')}")
             mem = r["memory"]
+            self.expect(mem["argument_size_in_bytes"]
+                        == mem["rules_block_size_in_bytes"],
+                        f"the dry run's {r['arch']} {r['shape']} holds "
+                        f"{mem['argument_size_in_bytes']} B, not the rules' "
+                        f"block of {mem['rules_block_size_in_bytes']} B")
             print(f"   {r['arch']:12s} {r['shape']:12s} {r['mesh']:8s} "
                   f"{r['step']:8s} arguments "
                   f"{mem['argument_size_in_bytes'] * gb:9.3f} GB (rules' "
@@ -3980,13 +3998,65 @@ class Smoke:
                   f"{r['cost']['flops'] / 1e12:10.3f} TFLOP, collectives "
                   f"{r['collectives']['total'] * gb:.3f} GB a rank "
                   f"(traced in {r['trace_s']:.1f} s)")
-        print(f"   {len(recs)} records, no error, in {wall:.1f} s of wall "
+        print(f"   {len(recs)} record, no error, arguments the rules' "
+              f"block, in {wall:.1f} s of wall "
               f"(counts from shapes on the host, not times; the card is "
               f"not used)")
         self.dryrun["records"] = recs
         self.dryrun["wall_s"] = wall
 
     # -- phase 46 -----------------------------------------------------------
+    def built(self, make):
+        """``make()``'s tensors and the bytes they hold: on the card the
+        caching allocator's requested and allocated bytes that ``make``
+        leaves behind (its temporaries freed); off it, the distinct
+        storages' bytes (a rehearsal measures nothing)."""
+        torch = self.torch
+        from repro_torch.utils.tree import leaves
+        card = self.dev.type == "cuda"
+        if card:
+            self.sync()
+            torch.cuda.empty_cache()
+            st = torch.cuda.memory_stats()
+            r0 = st["requested_bytes.all.current"]
+            a0 = st["allocated_bytes.all.current"]
+        args = make()
+        if card:
+            self.sync()
+            st = torch.cuda.memory_stats()
+            return args, (st["requested_bytes.all.current"] - r0,
+                          st["allocated_bytes.all.current"] - a0)
+        n = sum({t.untyped_storage().data_ptr():
+                 t.untyped_storage().nbytes()
+                 for t in leaves(dict(enumerate(args)))
+                 if isinstance(t, torch.Tensor)}.values())
+        return args, (n, n)
+
+    def step_peak(self, fn, args, alloc, no_grad):
+        """``fn(*args)`` run once to warm up, then once measured: (its ms,
+        the peak of ``max_memory_allocated`` less what the process holds
+        besides the inputs, ``alloc`` bytes of them (None off the card),
+        the measured run's kernel launches)."""
+        torch = self.torch
+        card = self.dev.type == "cuda"
+        with torch.no_grad() if no_grad else contextlib.nullcontext():
+            res = fn(*args)                   # warm-up
+            del res
+            self.sync()
+            if card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            other = (torch.cuda.memory_allocated() - alloc) if card else 0
+            self.zero_counts()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            self.sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - other) if card \
+                else None
+            del res
+        return ms, peak, self.read_counts()
+
     def dryrun_vs_card(self):
         """``launch/dryrun.py::trace_step`` with no mesh on two steps, then
         the same steps on the card: the predicted argument bytes against
@@ -3996,35 +4066,10 @@ class Smoke:
         from repro_torch.launch import dryrun as D
         from repro_torch.launch import specs as S
         from repro_torch.models import transformer as T
-        from repro_torch.utils.tree import leaves
         card = self.dev.type == "cuda"
         (B, L), (Bt, St) = self.dryrun_shapes
         gen = torch.Generator(device=self.dev)
         rng = np.random.RandomState(46)
-
-        def built(make):
-            """``make()``'s tensors and the bytes they hold: on the card
-            the caching allocator's requested and allocated bytes that
-            ``make`` leaves behind (its temporaries freed); off it, the
-            distinct storages' bytes (a rehearsal measures nothing)."""
-            if card:
-                self.sync()
-                torch.cuda.empty_cache()
-                st = torch.cuda.memory_stats()
-                r0 = st["requested_bytes.all.current"]
-                a0 = st["allocated_bytes.all.current"]
-            args = make()
-            if card:
-                self.sync()
-                st = torch.cuda.memory_stats()
-                return args, (st["requested_bytes.all.current"] - r0,
-                              st["allocated_bytes.all.current"] - a0)
-            n = sum({t.untyped_storage().data_ptr():
-                     t.untyped_storage().nbytes()
-                     for t in leaves(dict(enumerate(args)))
-                     if isinstance(t, torch.Tensor)}.values())
-            return args, (n, n)
-
         steps = {}
 
         def decode_args():
@@ -4040,7 +4085,7 @@ class Smoke:
         steps["decode"] = (
             f"{self.qwen_cfg.name} decode_step, batch {B}, a {L}-slot "
             f"cache", D.build_decode(self.qwen_cfg, "decode_32k", None),
-            *built(decode_args))
+            *self.built(decode_args))
 
         def train_args():
             sp = T.init_model(self.smollm_cfg, gen.manual_seed(1), self.dev,
@@ -4053,7 +4098,7 @@ class Smoke:
             f"{self.smollm_cfg.name} plain step, batch {Bt} x {St}, remat",
             D.build_train(self.smollm_cfg, None, None, plain=True,
                           remat=True)[0],
-            *built(train_args))
+            *self.built(train_args))
         out = {}
         for key, (what, fn, args, (held, alloc)) in steps.items():
             pred = D.trace_step(fn, args)
@@ -4064,24 +4109,8 @@ class Smoke:
                         f"{held} the inputs took")
             predicted = mem["argument_size_in_bytes"] + \
                 mem["temp_size_in_bytes"]
-            with torch.no_grad() if key == "decode" else \
-                    contextlib.nullcontext():
-                res = fn(*args)                   # warm-up
-                del res
-                self.sync()
-                if card:
-                    torch.cuda.empty_cache()
-                    torch.cuda.reset_peak_memory_stats()
-                # what else the process holds besides these inputs
-                other = (torch.cuda.memory_allocated() - alloc) if card \
-                    else 0
-                t0 = time.perf_counter()
-                res = fn(*args)
-                self.sync()
-                ms = (time.perf_counter() - t0) * 1e3
-                peak = (torch.cuda.max_memory_allocated() - other) if card \
-                    else predicted
-                del res
+            ms, peak, _ = self.step_peak(fn, args, alloc, key == "decode")
+            peak = predicted if peak is None else peak
             rel = abs(predicted - peak) / peak
             tflops = pred["cost"]["flops"] / (ms * 1e-3) / 1e12
             print(f"   {what}: arguments {held} B requested of the "
@@ -4145,6 +4174,120 @@ class Smoke:
             print(f"   {name} {' '.join(extra)}: {len(lines)} lines in "
                   f"{wall:.1f} s, launches {launches}; last: {lines[-1]}")
 
+    # -- phase 48 -----------------------------------------------------------
+    def tp_rank(self):
+        """Megatron tensor parallelism at full width, as rank 0 of a fake
+        world (``launch/dryrun.py``'s ``"fake"`` process group, its mesh
+        ``(1, n)``) with this rank's blocks of Qwen3-1.7B in bf16 on the
+        card: a prefill and one federated round (``gather_q``, 4 groups of
+        one local step, ``remat``).  For each, the bytes that building its
+        inputs asks of the caching allocator against ``trace_step``'s
+        predicted arguments and the rules' block, the peak against the
+        predicted one, kernel B's launches and the ms.  A fake group moves
+        no data (an all-gather leaves its output as it was allocated), so
+        the values are not held: this phase shows a rank's program, its
+        memory and its kernels on the card; the values of the same
+        program are held on gloo worlds by ``tests/test_torch_tp.py`` and
+        on 4 cards by ``--world 4``."""
+        np, torch = self.np, self.torch
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.core import fed_step as FS
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch import specs as S
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import transformer as T
+        from repro_torch.sharding.rules import (Rules, param_blocks,
+                                                param_shardings, use_rules)
+        from repro_torch.utils.tree import leaves, tree_map
+        card = self.dev.type == "cuda"
+        cfg = self.qwen_cfg
+        B, L, n = self.tp_shape
+        self.expect(not dist.is_initialized(), "a process group is up")
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+        try:
+            mesh = make_host_mesh(1, n, device="cpu")
+            rules = Rules(mesh)
+            whole = T.init_model(cfg, torch.Generator(
+                device=self.dev).manual_seed(48), self.dev,
+                dtype=S.PARAM_DTYPE)
+            tok = np.random.RandomState(48).randint(0, cfg.vocab, (B, L))
+            blk = param_shardings(rules, whole)
+
+            def inputs(extra=()):
+                # the blocks, each an allocation of its own, and the batch
+                def make():
+                    blocks = tree_map(lambda t: t.clone(),
+                                      param_blocks(whole, rules))
+                    return [blocks, {"tokens": torch.as_tensor(
+                        tok, dtype=torch.int32, device=self.dev)}] + [
+                        torch.as_tensor(e, device=self.dev) for e in extra]
+                return self.built(make)
+
+            fed = FS.FedConfig(n_groups=4, local_steps=1, lr=1e-2)
+            round_ = FS.make_fed_train_step(
+                lambda p, b: T.lm_loss(p, b, cfg, remat=True)[0], fed)
+            steps = {
+                "prefill": (f"prefill {B} x {L}",
+                            lambda p, b: T.prefill(p, b, cfg), inputs()),
+                "round": (f"fed round, 4 groups x 1 step, {B} x {L}, "
+                          f"gather_q, remat", round_,
+                          inputs((np.zeros(4, np.int32),)))}
+            whole_bytes = sum(x.numel() * x.element_size()
+                              for x in leaves(whole))
+            # the whole params' shapes, for the rules' block
+            whole = tree_map(lambda t: t.to("meta"), whole)
+            if card:
+                torch.cuda.empty_cache()
+            out = {}
+            for key, (what, fn, (args, (held, alloc))) in steps.items():
+                pred = D.trace_step(fn, args, mesh)
+                mem = pred["memory"]
+                block = D.spec_bytes([whole] + args[1:], [blk] + [
+                    S.batch_shardings(rules, args[1])] + [None] * (
+                        len(args) - 2), mesh)
+                self.expect(mem["argument_size_in_bytes"] == held == block,
+                            f"{key}: arguments {held} B on the card, "
+                            f"predicted {mem['argument_size_in_bytes']}, "
+                            f"the rules' block {block}")
+                predicted = mem["argument_size_in_bytes"] + \
+                    mem["temp_size_in_bytes"]
+                with use_rules(rules):
+                    ms, peak, counts = self.step_peak(fn, args, alloc,
+                                                      key == "prefill")
+                launches = counts["topk_quant"]
+                peak = predicted if peak is None else peak
+                rel = abs(predicted - peak) / peak
+                if key == "round":
+                    self.expect((launches > 0) == card,
+                                f"kernel B's launches in the round: "
+                                f"{launches}")
+                self.expect(rel <= 0.15, f"{key}: the predicted peak is "
+                            f"{rel * 100:.1f}% off the measured one")
+                print(f"   {what}: arguments {held} B requested of the "
+                      f"caching allocator ({alloc} B allocated) = "
+                      f"predicted = the rules' block (whole params "
+                      f"{whole_bytes} B); peak {peak / 1e9:.4f} GB, "
+                      f"predicted {predicted / 1e9:.4f} GB ({rel * 100:.2f}% "
+                      f"apart); {ms:.2f} ms; kernel B launches {launches}; "
+                      f"collectives a rank "
+                      f"{pred['collectives']['total'] / 1e9:.4f} GB "
+                      f"[{self.card()}]")
+                out[key] = dict(argument_bytes=held, allocated_bytes=alloc,
+                                rules_block=block, predicted_peak=predicted,
+                                measured_peak=peak, ms=ms, launches=launches,
+                                flops=pred["cost"]["flops"],
+                                collectives=pred["collectives"]["total"])
+            self.tp = out
+            self.add_launches("topk_quant", {
+                f"TP fed round, rank 0 of {n} (48)": out["round"]["launches"]})
+            del steps, args
+        finally:
+            dist.destroy_process_group()
+        if card:
+            torch.cuda.empty_cache()
+
     # -- the mesh slice on several cards (python3 chip_smoke.py --world 4) ---
     def world_server(self, mesh):
         """The sharded server over the whole world (and over 2 shards, each
@@ -4197,7 +4340,8 @@ class Smoke:
                       f"weights equal")
 
     def world_fed(self, mesh, cpu_mesh):
-        """The federated round on the (2, 2) mesh: SmolLM's smoke config on
+        """The federated round on the (2, 2) mesh, each rank on its blocks
+        of the params and its groups' batch rows: SmolLM's smoke config on
         the cards against the same world's gloo mesh on the CPU, every
         schedule; then SmolLM-135M at full width, ms per round and B's
         launches."""
@@ -4208,9 +4352,15 @@ class Smoke:
         from repro_torch.data import make_token_batch
         from repro_torch.kernels import ops
         from repro_torch.models import transformer as T
-        from repro_torch.sharding.rules import Rules, use_rules
+        from repro_torch.sharding.rules import (Rules, axis_index,
+                                                param_blocks, use_rules)
         from repro_torch.utils.tree import leaves, tree_map
         cfg = get_smoke_config("smollm-135m")
+        d, n_data = axis_index(mesh, "data")
+
+        def mine(x):                     # this rank's groups' batch rows
+            rows = x.shape[0] // n_data
+            return x[d * rows:(d + 1) * rows]
         w_cpu = T.init_model(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
         w_dev = tree_map(lambda v: v.to(self.dev), w_cpu)
@@ -4229,12 +4379,14 @@ class Smoke:
             res = {}
             for m, w, dev in ((cpu_mesh, w_cpu, "cpu"),
                               (mesh, w_dev, self.dev)):
-                batch = {"tokens": torch.from_numpy(tok).to(dev)}
+                batch = {"tokens": mine(torch.from_numpy(tok).to(dev))}
                 stale = torch.arange(4, device=dev)
                 ops.threshold_channel_leaves = spy
+                rules = Rules(m)
                 try:
-                    with use_rules(Rules(m)):
-                        res[str(dev)] = step(w, batch, stale)
+                    with use_rules(rules):
+                        res[str(dev)] = step(param_blocks(w, rules), batch,
+                                             stale)
                 finally:
                     ops.threshold_channel_leaves = real
             (pc, mc), (pd, md) = res["cpu"], res[str(self.dev)]
@@ -4262,13 +4414,15 @@ class Smoke:
         w0 = self.init_lm(full, 0)
         tok = make_token_batch(np.random.RandomState(0), shp["batch"],
                                shp["seq"], full.vocab)["tokens"]
-        batch = {"tokens": torch.from_numpy(tok).to(self.dev)}
+        batch = {"tokens": mine(torch.from_numpy(tok).to(self.dev))}
         stale = torch.zeros(4, dtype=torch.int32, device=self.dev)
         step = FS.make_fed_train_step(
             lambda p, b: T.lm_loss(p, b, full)[0],
             FS.FedConfig(n_groups=4, local_steps=2, lr=shp["lr"]))
         ms, launches = [], []
-        with use_rules(Rules(mesh)):
+        rules = Rules(mesh)
+        w0 = param_blocks(w0, rules)
+        with use_rules(rules):
             for _ in range(3):
                 self.zero_counts()
                 self.sync()
@@ -4290,12 +4444,14 @@ class Smoke:
 
     def world_seqshard(self, mesh):
         """The sequence-sharded decode of Qwen3-1.7B on the (2, 2) mesh:
-        each data rank's 2 rows of 4, the cache split over ``model``,
-        against plain decode of the same rows on the same card."""
+        each data rank's 2 rows of 4, the cache split over ``model``, the
+        rank's blocks of the params, against plain decode of the same
+        rows on the same card."""
         np, torch = self.np, self.torch
         from repro_torch.models import transformer as T
         from repro_torch.sharding.rules import (Rules, axis_index,
-                                                local_block, use_rules)
+                                                local_block, param_blocks,
+                                                use_rules)
         cfg, shp = self.qwen_cfg, self.qwen_shape
         params = self.init_lm(cfg)
         d, n_data = axis_index(mesh, "data")
@@ -4310,13 +4466,13 @@ class Smoke:
         blocks = {k: local_block(v, (None, None, "model", None, None),
                                  mesh).contiguous() for k, v in cache.items()}
 
-        def run(c, shard):
+        def run(c, shard, w=params):
             t, outs, ms, picked = first, [], [], []
             with torch.no_grad():
                 for i in range(gen):
                     self.sync()
                     t0 = time.perf_counter()
-                    lg, c = T.decode_step(params, t, S + i, cfg, c,
+                    lg, c = T.decode_step(w, t, S + i, cfg, c,
                                           seq_shard_kv=shard)
                     self.sync()
                     ms.append((time.perf_counter() - t0) * 1e3)
@@ -4326,8 +4482,10 @@ class Smoke:
             return outs, ms, picked
 
         plain, ms_plain, tok_plain = run(cache, False)
-        with use_rules(Rules(mesh)):
-            shard, ms_shard, tok_shard = run(blocks, True)
+        rules = Rules(mesh)
+        with use_rules(rules):
+            shard, ms_shard, tok_shard = run(blocks, True,
+                                             param_blocks(params, rules))
         err = max(float((a - b).abs().max()) for a, b in zip(plain, shard))
         self.expect(err <= SEQSHARD_TOL and tok_plain == tok_shard,
                     f"(2, 2) seqshard: logits off by {err}, tokens equal "
@@ -4609,10 +4767,12 @@ def main() -> int:
         ("43. the sequence-sharded decode: Qwen3-1.7B", s.seqshard_qwen),
         ("44. the federated round with the chunked loss and remat: "
          "SmolLM-135M", s.fed_remat),
-        ("45. the dry run on this host: Qwen3-1.7B and Mamba2-370M",
+        ("45. the dry run on this host: Qwen3-1.7B's decode_32k",
          s.dryrun_host),
         ("46. the dry run held to the card", s.dryrun_vs_card),
         ("47. the five example twins on the card", s.example_twins),
+        ("48. Megatron TP: rank 0 of a fake world of 16, Qwen3-1.7B",
+         s.tp_rank),
     ]
     chosen = None
     if sys.argv[1:2] == ["--phases"]:

@@ -6,7 +6,10 @@ per rank: on the CPU the reference's 4x2 ``(data, model)`` mesh is a world
 of 8 gloo ranks started by ``launch/mesh.py::spawn_world`` (rank 0
 prints); on the card the world is one rank per card present, a
 ``(cards, 1)`` mesh under NCCL.  Each round's ``gather_q`` exchange is
-kernel B's channel form with its wire, all-gathered over ``data``.
+kernel B's channel form with its wire, all-gathered over ``data``.  Each
+rank holds its block of the params (``param_blocks``: Megatron tensor
+parallelism over ``model``) and its groups' rows of the batch, and trains
+on them.
 
   PYTHONPATH=src python examples/torch_multipod_fed_round.py [--device cpu]
 """
@@ -24,7 +27,8 @@ from repro_torch.core.fed_step import (FedConfig, fed_wire_bytes,
                                        make_fed_train_step)
 from repro_torch.launch.mesh import init_world, make_host_mesh, spawn_world
 from repro_torch.models import transformer as T
-from repro_torch.sharding.rules import Rules, use_rules
+from repro_torch.sharding.rules import (Rules, axis_index, param_blocks,
+                                        use_rules)
 from repro_torch.utils.tree import resolve_device
 
 CPU_MESH = (4, 2)
@@ -56,6 +60,10 @@ def rank_main(device: torch.device) -> None:
         f"-> int8 {wire['dense_quant']/1e6:.1f}MB "
         f"-> packed sparse {wire['packed_sparse_quant']/1e6:.1f}MB "
         f"({wire['compression_x']:.1f}x)")
+    params = param_blocks(params, rules)
+    d, n_data = axis_index(mesh, "data")
+    rows = batch["tokens"].shape[0] // n_data
+    batch = {"tokens": batch["tokens"][d * rows:(d + 1) * rows]}
     with use_rules(rules):
         for i in range(5):
             t0 = time.time()

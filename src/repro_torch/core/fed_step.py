@@ -25,24 +25,27 @@ Without sharding rules (one card) the round is the JAX package's
 unsharded branch, and ``gather_f32`` and ``psum`` are the same dense
 combine.  Under ``use_rules(Rules(mesh))`` it is the mesh branch, over
 the ranks of a ``torch.distributed`` world, each running the same call
-on the whole params and batch:
+on its blocks of the params (``sharding.rules.param_blocks``: the twin of
+global arrays placed by ``param_shardings``) and of the batch (its rows
+over the fed axes, as ``batch`` maps to them):
 
   * the fed axes (``data`` [+ ``pod``]) split the G groups; each rank
-    trains its ``G / |fed axes|`` of them, under the group-local rules of
-    ``group_parallelism`` (``"tp"``, or ``"dp"``; the port computes a
-    group's dense layers replicated over ``model`` in both, and the MoE's
-    experts over ``model``, ``models/moe.py``);
-  * each rank takes its block of every leaf's deltas, cut as the outer
-    rules shard the parameter (``logical_axes_for``), so a threshold and
-    a scale belong to a (group, model block) as in the reference's
+    trains its ``G / |fed axes|`` of them (its batch rows, group-major),
+    under the group-local rules of ``group_parallelism``: ``"tp"`` trains
+    on the blocks (Megatron tensor parallelism over ``model``, the MoE's
+    experts expert-parallel); ``"dp"`` replicates the weights over
+    ``model``, as the reference does, so the blocks are first gathered
+    whole;
+  * each rank's deltas are its blocks' (under ``"dp"`` cut from the whole
+    deltas as the outer rules shard the parameter), so a threshold and a
+    scale belong to a (group, model block) as in the reference's
     ``shard_map``;
   * ``gather_q`` compresses the blocks with kernel B's channel form with
     its wire (int8 levels and f32 scales; two levels a byte at
     ``p_q <= 4``) and all-gathers the wire over the fed axes;
     ``gather_f32`` all-gathers the f32 blocks; ``psum`` all-reduces each
     rank's weighted partial sum;
-  * each rank forms its block of the new params, and an all-gather over
-    ``model`` makes them whole on every rank.  ``local_loss`` and
+  * each rank returns its blocks of the new params.  ``local_loss`` and
     ``delta_norm`` are the whole round's on every rank.
 """
 from __future__ import annotations
@@ -60,8 +63,8 @@ from repro_torch.core.staleness import (mixing_alpha,
 from repro_torch.kernels import ops
 from repro_torch.sharding.rules import (Rules, active_rules,
                                         all_gather_dim, axes_size,
-                                        axis_group, gather_block,
-                                        local_block, logical_axes_for,
+                                        axis_group, block_specs,
+                                        gather_params, local_block,
                                         use_rules)
 from repro_torch.utils.tree import leaves, paths, tree_map, unflatten
 
@@ -173,7 +176,10 @@ def make_fed_train_step(loss_fn: Callable, fed: FedConfig) -> Callable:
 
     ``loss_fn(params, batch) -> scalar``.  ``batch`` leaves are (B, ...)
     with B divisible by ``n_groups * local_steps``; ``staleness`` is (G,)
-    int32."""
+    int32.  Under active rules ``params`` and ``params'`` are the rank's
+    blocks (``param_blocks``) and ``batch`` its rows: B over the fed axes'
+    ranks, divisible by its ``n_groups / |fed axes|`` groups times
+    ``local_steps``."""
     if fed.schedule not in ("gather_q", "gather_f32", "psum"):
         raise ValueError(f"unknown schedule {fed.schedule!r}; expected "
                          f"gather_q, gather_f32 or psum")
@@ -186,13 +192,13 @@ def make_fed_train_step(loss_fn: Callable, fed: FedConfig) -> Callable:
         in_dims=(None, 0))
 
     def fed_round(params, batch, staleness):
-        def split(x):  # (B, ...) -> (G, E, B/(G*E), ...), group-major
-            return x.reshape((G, E, x.shape[0] // (G * E)) + x.shape[1:])
+        def split(x, g=G):  # (B, ...) -> (g, E, B/(g*E), ...), group-major
+            return x.reshape((g, E, x.shape[0] // (g * E)) + x.shape[1:])
 
         rules = active_rules()
         if rules is not None:
-            return _mesh_round(local, params, tree_map(split, batch),
-                               staleness, fed, rules)
+            return _mesh_round(local, params, batch, split, staleness, fed,
+                               rules)
         w_local, losses = local(params, tree_map(split, batch))
 
         delta = tree_map(lambda wl, w0: wl - w0[None], w_local, params)
@@ -245,9 +251,10 @@ def _local_rules(rules: Rules, fed: FedConfig) -> Rules:
     return rules.with_overrides(batch=None, seq=None)
 
 
-def _mesh_round(local, params, gbatch, staleness, fed: FedConfig,
+def _mesh_round(local, params, batch, split, staleness, fed: FedConfig,
                 rules: Rules):
-    """One round on a mesh (the module docstring's mesh branch)."""
+    """One round on a mesh (the module docstring's mesh branch); ``params``
+    the rank's blocks, ``batch`` its rows (its groups')."""
     mesh = rules.mesh
     G = fed.n_groups
     fgroup, f_idx, n_fed = axis_group(mesh, _fed_axes(rules))
@@ -256,21 +263,26 @@ def _mesh_round(local, params, gbatch, staleness, fed: FedConfig,
                          f"{_fed_axes(rules)} of size {n_fed}")
     g_loc = G // n_fed
     mine = slice(f_idx * g_loc, (f_idx + 1) * g_loc)
-    with use_rules(_local_rules(rules, fed)):
-        w_local, losses = local(params, tree_map(lambda x: x[mine], gbatch))
-
+    gb = tree_map(lambda x: split(x, g_loc), batch)
     names, w0s = paths(params), leaves(params)
+    specs = block_specs(rules, params)
+    if fed.group_parallelism == "dp":
+        whole = gather_params(params, rules)
+        with use_rules(_local_rules(rules, fed)):
+            w_local, losses = local(whole, gb)
+        # this rank's block of each delta, as the outer rules shard it
+        blocks = [local_block(wl - w0[None], (None,) + sp, mesh)
+                  for wl, w0, sp in zip(leaves(w_local), leaves(whole),
+                                        specs)]
+    else:
+        with use_rules(_local_rules(rules, fed)):
+            w_local, losses = local(params, gb)
+        blocks = [wl - w0[None] for wl, w0 in zip(leaves(w_local), w0s)]
+
     device = w0s[0].device
     stale = torch.as_tensor(staleness, device=device).to(torch.float32)
     wts = stacked_staleness_weights(stale, torch.ones_like(stale), fed.a)
     a_t = mixing_alpha(stale, fed.alpha, fed.a)
-
-    # this rank's block of each leaf, as the outer rules shard the param
-    specs = [rules.spec(logical_axes_for("/".join(n), w0.dim()), w0.shape)
-             for n, w0 in zip(names, w0s)]
-    blocks = [local_block(wl - w0[None], (None,) + sp, mesh)
-              for wl, w0, sp in zip(leaves(w_local), w0s, specs)]
-    w0_loc = [local_block(w0, sp, mesh) for w0, sp in zip(w0s, specs)]
     rows = [d.reshape(g_loc, -1).to(torch.float32) for d in blocks]
     metrics = {"alpha_t": a_t}
 
@@ -289,8 +301,8 @@ def _mesh_round(local, params, gbatch, staleness, fed: FedConfig,
             metrics["wire_bytes"] = flat.numel() * 4
             dq = list(torch.split(dq, [r.shape[1] for r in rows], dim=1))
         us = [torch.einsum("gn,g->n", d, wts) for d in dq]
-    new = [gather_block((w + a_t * u.reshape(w.shape)).to(w.dtype), sp, mesh)
-           for w, u, sp in zip(w0_loc, us, specs)]
+    new = [(w + a_t * u.reshape(w.shape)).to(w.dtype)
+           for w, u in zip(w0s, us)]
 
     # the whole round's metrics on every rank: a leaf replicated over the
     # non-fed axes counts once, its share of each rank's sum

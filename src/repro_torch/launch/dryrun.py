@@ -19,9 +19,10 @@ eagerly under three meters (:func:`trace_step`):
   reach the dispatcher, with the group size from the op's process group
   and the JAX package's ring formulas (:func:`ring_bytes`);
 * memory from this module's own storage tracker: the arguments are what
-  the rank holds (whole parameters: the port keeps them so), the peak of
-  live storages during the step less the arguments is the temp size, and
-  the output is the returned tensors' storages.
+  the rank holds (its blocks of the parameters, ``param_blocks``, and of
+  the batch and the cache), the peak of live storages during the step
+  less the arguments is the temp size, and the output is the returned
+  tensors' storages.
 
 It is a host tool, as the JAX package's is: it launches nothing on a
 card.  On fake CPU tensors every kernel wrapper takes its plain version,
@@ -57,7 +58,8 @@ from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import transformer as T
 from repro_torch.sharding.rules import (Rules, axes_size, local_block,
-                                        param_shardings, use_rules)
+                                        param_blocks, param_shardings,
+                                        use_rules)
 from repro_torch.utils.tree import leaves, tree_map
 
 TRANSFORMER_ARCHS = tuple(a for a in ARCH_IDS if a != "fmnist_cnn")
@@ -85,13 +87,12 @@ def build_train(cfg, rules, fed: Optional[FedConfig], plain: bool,
 
 def build_args_train(cfg, shape_name, rules, fed: Optional[FedConfig]):
     """-> (args, their specs): params and batch, and the staleness of the
-    federated round.  Every rank holds them whole for the round (it takes
-    its groups itself); the plain step takes the rank's batch block."""
+    federated round; the specs cut each rank's block of the batch (the
+    round's rows are its groups')."""
     params = S.param_specs(cfg)
     batch = S.batch_specs(cfg, shape_name)
     args = [params, batch]
-    in_sh = [None, None if fed is not None or rules is None
-             else S.batch_shardings(rules, batch)]
+    in_sh = [None, None if rules is None else S.batch_shardings(rules, batch)]
     if fed is not None:
         args.append(torch.empty((fed.n_groups,), dtype=torch.int32,
                                 device=S.META))
@@ -370,14 +371,6 @@ def spec_bytes(args: Sequence[Any], specs: Sequence[Any], mesh) -> int:
     return total
 
 
-def _held_rules(rules: Rules) -> Rules:
-    """The axes the port's program cuts a tensor on: the batch's (and a
-    sequence-sharded cache's, ``kv_seq``); it computes every other layer
-    replicated over ``model`` (``sharding/rules.py::shard``)."""
-    return rules.with_overrides(heads=None, kv_heads=None, ffn=None,
-                                vocab=None, experts=None, ssm_heads=None)
-
-
 # ----------------------------------------------------------------------
 # the fake world
 # ----------------------------------------------------------------------
@@ -398,69 +391,83 @@ def fake_world(size: int) -> None:
 
 
 # ----------------------------------------------------------------------
-def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
-            step_kind: str = "fed", fed_schedule: str = "gather_q",
-            local_steps: int = 1, p_q: int = 8, loss_chunk: int = 0,
-            seq_shard_kv: bool = False, kv_quant: bool = False,
-            group_parallelism: str = "tp",
-            variant: str = "", verbose: bool = True) -> Dict[str, Any]:
-    fake_world(512 if multi_pod else 256)
-    cfg = get_config(arch)
-    mesh = make_production_mesh(multi_pod=multi_pod)
+def trace_record(cfg, shape_name: str, mesh, *, step_kind: str = "fed",
+                 fed_schedule: str = "gather_q", local_steps: int = 1,
+                 p_q: int = 8, loss_chunk: int = 0,
+                 seq_shard_kv: bool = False, kv_quant: bool = False,
+                 group_parallelism: str = "tp") -> Dict[str, Any]:
+    """One (config x input shape) step traced as this rank's program on
+    ``mesh``, each rank holding its blocks of the params
+    (``param_blocks``), of the batch and of the cache; with
+    ``rules_block_size_in_bytes``, the bytes of the blocks the rules
+    give it (``spec_bytes``)."""
     rules = Rules(mesh)
     shape = INPUT_SHAPES[shape_name]
     rec: Dict[str, Any] = {
+        "step": step_kind if shape.kind == "train" else shape.kind}
+    params = S.param_specs(cfg)
+    held = param_blocks(params, rules)
+    blk = param_shardings(rules, params)
+    if shape.kind == "train":
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        n_groups = int(sizes.get("pod", 1) * sizes["data"])
+        fed = None
+        if step_kind == "fed":
+            fed = FedConfig(n_groups=n_groups, local_steps=local_steps,
+                            schedule=fed_schedule, p_q=p_q,
+                            group_parallelism=group_parallelism)
+            rec["fed"] = {"n_groups": n_groups, "schedule": fed_schedule,
+                          "p_q": p_q, "local_steps": local_steps}
+            rec["wire"] = fed_wire_bytes(params, fed, n_groups)
+        fn, _ = build_train(cfg, rules, fed, plain=step_kind == "plain",
+                            loss_chunk=loss_chunk)
+        args, in_sh = build_args_train(cfg, shape_name, rules, fed)
+        held_sh = in_sh
+    elif shape.kind == "prefill":
+        fn = build_prefill(cfg, rules)
+        batch = S.batch_specs(cfg, shape_name)
+        args, in_sh = [params, batch], [None, S.batch_shardings(rules, batch)]
+        held_sh = in_sh
+    else:  # decode
+        fn = build_decode(cfg, shape_name, rules, seq_shard_kv=seq_shard_kv,
+                          kv_quant=kv_quant)
+        tok, cache, pos, rolling = S.decode_specs(cfg, shape_name,
+                                                  quantized=kv_quant)
+        rec["rolling_window"] = bool(rolling) and S.WINDOW or 0
+        if seq_shard_kv:   # the sequence-sharded decode takes an int
+            pos = shape.seq_len - 1
+        args = [params, tok, pos, cache]
+        in_sh = [None, S.batch_shardings(rules, tok), None,
+                 S.cache_shardings(rules, cache, seq_shard=seq_shard_kv)]
+        # the SSM layers run whole (their weights are ``d_model``-only):
+        # a rank holds the whole of each row's SSM state, where GSPMD
+        # would split it over ``ssm_heads``
+        held_sh = in_sh[:3] + [S.cache_shardings(
+            rules.with_overrides(ssm_heads=None), cache,
+            seq_shard=seq_shard_kv)]
+    rec.update(trace_step(fn, [held] + args[1:], mesh, held_sh))
+    # what GSPMD would hold per device under the same rules
+    rec["memory"]["rules_block_size_in_bytes"] = spec_bytes(
+        args, [blk] + in_sh[1:], mesh)
+    return rec
+
+
+def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
+            variant: str = "", verbose: bool = True, **kw) -> Dict[str, Any]:
+    """One record of the production grid: ``arch`` at ``shape_name`` on
+    the (16, 16) mesh, or (2, 16, 16) with ``multi_pod``, as rank 0 of a
+    fake world; ``kw`` as :func:`trace_record` takes them."""
+    fake_world(512 if multi_pod else 256)
+    cfg = get_config(arch)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    rec: Dict[str, Any] = {
         "arch": arch, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
-        "step": step_kind if shape.kind == "train" else shape.kind,
         "params": cfg.param_count(), "active_params": cfg.active_param_count(),
     }
     if variant:
         rec["variant"] = variant
-
-    held = _held_rules(rules)
-    with use_rules(rules):
-        params = S.param_specs(cfg)
-        if shape.kind == "train":
-            sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-            n_groups = int(sizes.get("pod", 1) * sizes["data"])
-            fed = None
-            if step_kind == "fed":
-                fed = FedConfig(n_groups=n_groups, local_steps=local_steps,
-                                schedule=fed_schedule, p_q=p_q,
-                                group_parallelism=group_parallelism)
-                rec["fed"] = {"n_groups": n_groups, "schedule": fed_schedule,
-                              "p_q": p_q, "local_steps": local_steps}
-                rec["wire"] = fed_wire_bytes(params, fed, n_groups)
-            fn, _ = build_train(cfg, rules, fed, plain=step_kind == "plain",
-                                loss_chunk=loss_chunk)
-            args, in_sh = build_args_train(cfg, shape_name, rules, fed)
-            blk = [param_shardings(rules, args[0]),
-                   S.batch_shardings(rules, args[1])] + [None] * (
-                       len(args) - 2)
-        elif shape.kind == "prefill":
-            fn = build_prefill(cfg, rules)
-            batch = S.batch_specs(cfg, shape_name)
-            args = [params, batch]
-            in_sh = [None, S.batch_shardings(rules, batch)]
-            blk = [param_shardings(rules, params), in_sh[1]]
-        else:  # decode
-            fn = build_decode(cfg, shape_name, rules,
-                              seq_shard_kv=seq_shard_kv, kv_quant=kv_quant)
-            tok, cache, pos, rolling = S.decode_specs(cfg, shape_name,
-                                                      quantized=kv_quant)
-            rec["rolling_window"] = bool(rolling) and S.WINDOW or 0
-            if seq_shard_kv:   # the sequence-sharded decode takes an int
-                pos = shape.seq_len - 1
-            args = [params, tok, pos, cache]
-            in_sh = [None, S.batch_shardings(rules, tok), None,
-                     S.cache_shardings(held, cache, seq_shard=seq_shard_kv)]
-            blk = [param_shardings(rules, params), in_sh[1], None,
-                   S.cache_shardings(rules, cache, seq_shard=seq_shard_kv)]
-
-    rec.update(trace_step(fn, args, mesh, in_sh))
-    # what GSPMD would hold per device under the same rules
-    rec["memory"]["rules_block_size_in_bytes"] = spec_bytes(args, blk, mesh)
+    rec.update(trace_record(cfg, shape_name, mesh, **kw))
     if verbose:
         flops = rec["cost"]["flops"]
         coll = rec["collectives"]["total"]

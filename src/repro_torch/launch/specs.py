@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import INPUT_SHAPES, ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.sharding.rules import Rules, as_axes
+from repro_torch.sharding.rules import Rules, as_axes, use_rules
 from repro_torch.utils.tree import leaves, paths, tree_map, unflatten
 
 PARAM_DTYPE = torch.bfloat16
@@ -62,7 +62,7 @@ def decode_specs(cfg: ModelConfig, shape_name: str, quantized: bool = False
     B = s.global_batch
     rolling = shape_name == "long_500k" and not cfg.is_ssm_only
     cache_len = min(s.seq_len, WINDOW) if rolling else s.seq_len
-    with META:
+    with META, use_rules(None):    # the whole cache, as every spec here
         cache = T.init_decode_state(cfg, B, cache_len, PARAM_DTYPE,
                                     device=META, rolling=rolling,
                                     quantized=quantized)

@@ -15,17 +15,39 @@ the form the continuous batcher needs).  The cache slot a row writes is
 its position clamped to ``[0, L-1]``, as XLA's ``dynamic_update_slice``
 clamps its start; the rotary angle and the mask take the unclamped
 position.  Decode returns a new cache and leaves its input as it was.
+
+Under active sharding rules (Megatron tensor parallelism) ``wq``/``wo``
+are the rank's blocks of the ``heads`` columns/rows and ``wk``/``wv`` of
+the ``kv_heads`` columns, as ``Rules.spec`` cuts them; :func:`_tp_plan`
+says how a rank computes on them:
+
+* ``"heads"``, where the ``wq`` block is whole heads: the rank attends its
+  q heads, the input entering through ``copy_to`` and the ``wo`` product
+  summed over the ranks (``psum``).  Its k/v heads are its own where the
+  ``wk``/``wv`` block is whole heads; otherwise (a block cutting through
+  a head, or a leaf held whole) it gathers ``wk``/``wv`` whole for the
+  layer and takes the kv heads its q heads read, through ``copy_to``
+  (their gradient is then reduce-scattered);
+* ``"replicated"``, where the ``wq`` block cuts through a head: every
+  split leaf is gathered whole for the layer and the layer runs whole on
+  every rank (a block's gradient is its slice).  The sequence-sharded
+  decode takes this form too: its ranks hold the cache's sequence, so
+  each needs every head.
+
+The decode cache holds the rank's kv heads where they divide (``init_cache``
+under the rules), the whole cache otherwise.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (dense_init, head_rmsnorm,
                                        init_device, rotary)
+from repro_torch.sharding.rules import copy_to, gather, psum, tp_axis
 
 NEG_INF = -1e30
 
@@ -54,26 +76,138 @@ def attn_init(generator: torch.Generator, cfg, dtype=torch.float32,
     return p
 
 
-def _project_q(p: Params, x, positions, cfg, rope: bool):
+def _project_q(p: Params, x, positions, cfg, rope: bool, group=None):
+    """x @ wq as (B, S, heads, hd): every head, or the rank's under a
+    ``"heads"`` plan (``group``: its axis, through which the replicated
+    ``q_norm`` enters)."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = (x @ p["wq"]).reshape(B, S, -1, cfg.head_dim)
     if "q_norm" in p:
-        q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        q = head_rmsnorm(q, copy_to(p["q_norm"], group), cfg.norm_eps)
     if rope:
         q = rotary(q, positions, cfg.rope_theta)
     return q
 
 
-def _project_kv(p: Params, x, positions, cfg, rope: bool):
+def _project_kv(p: Params, x, positions, cfg, rope: bool, group=None,
+                wk=None, wv=None):
+    """(x @ wk, x @ wv) as (B, S, kv heads, hd), by default from the
+    layer's own ``wk``/``wv``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    k = (x @ (p["wk"] if wk is None else wk)).reshape(B, S, -1, hd)
+    v = (x @ (p["wv"] if wv is None else wv)).reshape(B, S, -1, hd)
     if "k_norm" in p:
-        k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        k = head_rmsnorm(k, copy_to(p["k_norm"], group), cfg.norm_eps)
     if rope:
         k = rotary(k, positions, cfg.rope_theta)
     return k, v
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism (the module docstring)
+# ----------------------------------------------------------------------
+class _Plan(NamedTuple):
+    mode: str                   # "heads" or "replicated"
+    group: Any                  # the model axis: ranks splitting heads
+    q_axis: Tuple[Any, int, int]     # (group, index, size) of wq / wo
+    kv_axis: Tuple[Any, int, int]    # of wk / wv
+    kvs: Optional[Tuple[int, ...]]   # "heads": the kv heads the rank's q
+    #                                  heads read, None where its own
+
+
+def _tp_plan(cfg) -> Optional[_Plan]:
+    """How this rank computes an attention layer under the active rules;
+    None where no leaf of it is split."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q_axis = tp_axis("heads", H * hd)
+    kv_axis = tp_axis("kv_heads", KV * hd)
+    n, kn = q_axis[2], kv_axis[2]
+    if n == 1 and kn == 1:
+        return None
+    if n == 1 or H % n or kn not in (1, n):
+        return _Plan("replicated", None, q_axis, kv_axis, None)
+    Hl, rep = H // n, H // KV
+    lo = q_axis[1] * Hl
+    kvs = None
+    if kn == 1 or KV % n:
+        per_q = [(lo + j) // rep for j in range(Hl)]
+        heads = sorted(set(per_q))
+        # grouped where each kv head serves as many of the rank's q heads
+        uniform = all(per_q.count(h) * len(heads) == Hl for h in heads)
+        kvs = tuple(heads if uniform else per_q)
+    return _Plan("heads", q_axis[0], q_axis, kv_axis, kvs)
+
+
+def _whole(w: torch.Tensor, axis) -> torch.Tensor:
+    """A leaf split along its columns (``axis``) gathered whole."""
+    return gather(w, -1, *axis)
+
+
+def _whole_weights(p: Params, plan: Optional[_Plan]) -> Params:
+    """The layer's leaves whole on every rank (``wo`` is split along its
+    rows), for the ``"replicated"`` plan."""
+    if plan is None:
+        return p
+    out = dict(p)
+    out["wq"] = _whole(p["wq"], plan.q_axis)
+    out["wo"] = gather(p["wo"], -2, *plan.q_axis)
+    out["wk"] = _whole(p["wk"], plan.kv_axis)
+    out["wv"] = _whole(p["wv"], plan.kv_axis)
+    return out
+
+
+def _tp_layer(p: Params, cfg):
+    """-> (the layer's leaves as this rank computes on them, its
+    ``"heads"`` plan or None, the group its inputs enter through or
+    None): under a ``"replicated"`` plan the leaves gathered whole."""
+    plan = _tp_plan(cfg)
+    if plan is None:
+        return p, None, None
+    if plan.mode == "replicated":
+        return _whole_weights(p, plan), None, None
+    return p, plan, plan.group
+
+
+def _head_cols(w: torch.Tensor, heads: Sequence[int], hd: int
+               ) -> torch.Tensor:
+    """The columns of ``heads`` (ascending runs joined) of a (..., D,
+    heads * hd) weight."""
+    runs, start = [], 0
+    for i in range(1, len(heads) + 1):
+        if i == len(heads) or heads[i] != heads[i - 1] + 1:
+            runs.append(w.narrow(-1, heads[start] * hd,
+                                 (heads[i - 1] - heads[start] + 1) * hd))
+            start = i
+    return runs[0] if len(runs) == 1 else torch.cat(runs, dim=-1)
+
+
+def _select_heads(k: torch.Tensor, heads: Sequence[int]) -> torch.Tensor:
+    """(B, S, heads, hd) of ``heads`` from a (B, S, all kv heads, hd)."""
+    idx = torch.as_tensor(list(heads), device=k.device)
+    return k.index_select(2, idx)
+
+
+def _heads_kv(p: Params, plan: _Plan, src, positions, cfg, rope: bool,
+              all_heads: bool):
+    """k/v for the rank's q heads under a ``"heads"`` plan from ``src``
+    (already through ``copy_to``).  -> (k, v for the attention, k, v for
+    the cache: every kv head where the rank does not own its kv heads,
+    else None for the same)."""
+    g = plan.group
+    if plan.kvs is None:
+        k, v = _project_kv(p, src, positions, cfg, rope, g)
+        return k, v, None, None
+    wk = copy_to(_whole(p["wk"], plan.kv_axis), g)
+    wv = copy_to(_whole(p["wv"], plan.kv_axis), g)
+    if all_heads:
+        k, v = _project_kv(p, src, positions, cfg, rope, g, wk, wv)
+        return _select_heads(k, plan.kvs), _select_heads(v, plan.kvs), k, v
+    hd = cfg.head_dim
+    k, v = _project_kv(p, src, positions, cfg, rope, g,
+                       _head_cols(wk, plan.kvs, hd),
+                       _head_cols(wv, plan.kvs, hd))
+    return k, v, None, None
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -173,13 +307,20 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
     ``flash_threshold``."""
     B, S, _ = x.shape
     rope = enc_out is None
-    q = _project_q(p, x, positions, cfg, rope)
+    p, plan, g = _tp_layer(p, cfg)
+    x = copy_to(x, g)
+    q = _project_q(p, x, positions, cfg, rope, g)
     if enc_out is None:
-        k, v = _project_kv(p, x, positions, cfg, rope)
+        src, kpos = x, positions
     else:
-        Se = enc_out.shape[1]
-        k, v = _project_kv(p, enc_out, torch.zeros(
-            (B, Se), dtype=torch.int64, device=x.device), cfg, False)
+        src = copy_to(enc_out, g)
+        kpos = torch.zeros((B, enc_out.shape[1]), dtype=torch.int64,
+                           device=x.device)
+    if plan is not None:
+        k, v, kc, vc = _heads_kv(p, plan, src, kpos, cfg, rope, return_kv)
+    else:
+        k, v = _project_kv(p, src, kpos, cfg, rope)
+        kc = vc = None
 
     Sk = k.shape[1]
     if max(S, Sk) > flash_threshold:
@@ -195,9 +336,9 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
                 j = torch.arange(Sk, device=x.device)[None, :]
                 mask &= (i - j) < window
         o = _plain_attention(q, k, v, mask)
-    o = o.reshape(B, S, -1) @ p["wo"]
+    o = psum(o.reshape(B, S, -1) @ p["wo"], g)
     if return_kv:
-        return o, {"k": k, "v": v}
+        return o, {"k": k if kc is None else kc, "v": v if vc is None else vc}
     return o
 
 
@@ -206,8 +347,10 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                cross_len: int = 0, quantized: bool = False, device=None
                ) -> Params:
     """KV cache (B, L, G, hd).  ``quantized=True`` stores int8 levels and
-    per-(slot, head) f32 scales."""
-    hd, G = cfg.head_dim, cfg.n_kv_heads
+    per-(slot, head) f32 scales.  Under rules that split the kv heads
+    (they divide the model axis) G is the rank's share of them."""
+    hd = cfg.head_dim
+    G = cfg.n_kv_heads // tp_axis("kv_heads", cfg.n_kv_heads)[2]
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
     if quantized:
         c = {"k": z((batch, cache_len, G, hd), torch.int8),
@@ -259,14 +402,23 @@ def attn_decode(p: Params, x: torch.Tensor, pos, cfg, cache: Params, *,
     B = x.shape[0]
     pos = row_positions(pos, B, x.device)
     positions = pos[:, None]
-    q = _project_q(p, x, positions, cfg, rope=not cross)
+    p, plan, g = _tp_layer(p, cfg)
+    x = copy_to(x, g)
+    q = _project_q(p, x, positions, cfg, rope=not cross, group=g)
+    kvs = plan.kvs if plan else None      # the whole cache: read these
 
     if cross:  # enc-dec cross attention: cache is pre-filled, never written
         k, v = cache["xk"], cache["xv"]
         mask = None
         new_cache = cache
     else:
-        k_new, v_new = _project_kv(p, x, positions, cfg, rope=True)
+        if kvs is not None:               # every kv head, for the cache
+            k_new, v_new = _project_kv(
+                p, x, positions, cfg, True, g,
+                _whole(p["wk"], plan.kv_axis), _whole(p["wv"], plan.kv_axis))
+        else:
+            k_new, v_new = _project_kv(p, x, positions, cfg, rope=True,
+                                       group=g)
         L = cache["k"].shape[1]
         slot = pos % L if rolling else pos.clamp(0, L - 1)
         at = (torch.arange(B, device=x.device), slot)
@@ -290,12 +442,14 @@ def attn_decode(p: Params, x: torch.Tensor, pos, cfg, cache: Params, *,
         else:
             mask = j <= pos[:, None]                      # (B, L)
 
+    if kvs is not None:
+        k, v = _select_heads(k, kvs), _select_heads(v, kvs)
     s = _grouped_scores(q, k)                             # (B,G,rep,1,L)
     if mask is not None:
         s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
     probs = torch.softmax(s, dim=-1)
     o = _grouped_out(probs, v, x.dtype)                   # (B,1,H,hd)
-    return o.reshape(B, 1, -1) @ p["wo"], new_cache
+    return psum(o.reshape(B, 1, -1) @ p["wo"], g), new_cache
 
 
 # -- sequence-sharded decode (beyond-paper: MQA/GQA KV too small to TP) ---
@@ -313,7 +467,8 @@ def attn_decode_seqshard(p: Params, x: torch.Tensor, pos, cfg,
     maxima, then SUMs of the local exponent sums and outputs.  ``pos`` is
     one int for every row, as in the JAX package.  For MQA (granite:
     one KV head) a cache cannot shard over heads, so this cuts each
-    rank's KV reads by the model degree."""
+    rank's KV reads by the model degree.  Split leaves of the layer are
+    gathered whole for it (every rank attends every head)."""
     from repro_torch.sharding.rules import (active_rules, axis_group, pmax,
                                             psum)
     rules = active_rules()
@@ -326,6 +481,7 @@ def attn_decode_seqshard(p: Params, x: torch.Tensor, pos, cfg,
                          f"for every row, got shape {tuple(pos.shape)}")
     pos = int(pos)
     group, r, _ = axis_group(rules.mesh, "model")
+    p = _whole_weights(p, _tp_plan(cfg))
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q = _project_q(p, x, positions, cfg, rope=True)        # (B,1,H,hd)

@@ -8,6 +8,13 @@ JAX package's own weights carries them over with
 ``repro_torch.utils.tree.from_numpy``).  Each takes ``lead``, a tuple of
 leading axes, and draws the layer-stacked leaf ``lead + shape`` in one
 call, so a stack of layers is never held twice while it is built.
+
+Under active sharding rules a split parameter is the rank's block
+(``sharding/rules.py::param_blocks``) and these layers are Megatron's: the
+MLP column-parallel in ``w_gate``/``w_up`` and row-parallel in
+``w_down``, the embedding and the head vocabulary-parallel.  Each takes
+the whole width of its split dim (``ffn``, ``vocab``) to tell a block from
+a leaf held whole; with no rules it computes as the JAX package does.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.rules import copy_to, gather, pmax, psum, tp_axis
 
 
 def init_device(generator: Optional[torch.Generator]):
@@ -96,14 +105,19 @@ def mlp_init(generator: torch.Generator, d: int, f: int,
     return p
 
 
-def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, ffn: int = 0
+        ) -> torch.Tensor:
     """SwiGLU with ``w_gate``, else GELU in ``jax.nn.gelu``'s default
-    form, the tanh approximation."""
+    form, the tanh approximation.  ``ffn``: the whole hidden width; where
+    the rules split it, the params are the rank's blocks and the partial
+    outputs are summed over the ranks."""
+    group = tp_axis("ffn", ffn)[0] if ffn else None
+    x = copy_to(x, group)
     if "w_gate" in params:
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")
-    return h @ params["w_down"]
+    return psum(h @ params["w_down"], group)
 
 
 # -- embeddings ----------------------------------------------------------
@@ -112,12 +126,51 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
     return uniform_init(generator, (vocab, d), 1.0 / math.sqrt(d), dtype)
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, vocab: int = 0
+                 ) -> torch.Tensor:
+    """Rows of ``table`` for ``ids``.  ``vocab``: the whole vocabulary;
+    where the rules split it, ``table`` is the rank's rows, ids outside
+    them look up zeros and the ranks' rows are summed."""
+    group, r, _ = tp_axis("vocab", vocab) if vocab else (None, 0, 1)
+    if group is None:
+        return table[ids]
+    n = table.shape[0]
+    local = ids - r * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+    return psum(rows, group)
+
+
+def lm_head_block(x: torch.Tensor, table: Optional[torch.Tensor],
+                  head: Optional[torch.Tensor], vocab: int = 0):
+    """-> (f32 logits of the rank's vocabulary columns, (group, index,
+    size) of the split; (None, 0, 1) where the vocabulary is whole)."""
+    axis = tp_axis("vocab", vocab) if vocab else (None, 0, 1)
+    x = copy_to(x, axis[0])
+    logits = x @ head if head is not None else x @ table.T
+    return logits.to(torch.float32), axis
 
 
 def lm_head(x: torch.Tensor, table: Optional[torch.Tensor],
-            head: Optional[torch.Tensor]) -> torch.Tensor:
-    """Project to vocab logits (tied table or separate head). f32 logits."""
-    logits = x @ head if head is not None else x @ table.T
-    return logits.to(torch.float32)
+            head: Optional[torch.Tensor], vocab: int = 0) -> torch.Tensor:
+    """Project to vocab logits (tied table or separate head). f32 logits,
+    the whole vocabulary's (gathered where the rules split it)."""
+    logits, (group, r, n) = lm_head_block(x, table, head, vocab)
+    return gather(logits, -1, group, r, n)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
+                       group, index: int) -> torch.Tensor:
+    """Megatron's vocabulary-parallel cross entropy: ``logits`` (..., V/n)
+    f32, the rank's columns; ``targets`` (...) whole ids -> (...) the
+    next-token NLL, the same on every rank.  The maximum (detached), the
+    sum of exponentials and the target's logit are reduced over
+    ``group``."""
+    n = logits.shape[-1]
+    m = pmax(logits.detach().amax(dim=-1), group)
+    sumexp = psum(torch.exp(logits - m[..., None]).sum(dim=-1), group)
+    local = targets.long() - index * n
+    mine = (local >= 0) & (local < n)
+    t = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    t = psum(torch.where(mine, t, torch.zeros_like(t)), group)
+    return torch.log(sumexp) + m - t

@@ -7,9 +7,10 @@ Two routes with the same routing:
   exact (no capacity drops); the route without sharding rules, and the
   oracle;
 * ``_moe_ep_local`` -- expert parallelism over the ``model`` axis of the
-  active rules' mesh (``moe_apply``'s mesh route): each model rank owns
-  ``E / model`` experts, takes up to ``capacity`` tokens per expert from
-  its tokens (model-replicated, as they enter the block) by a sort-free
+  active rules' mesh (``moe_apply``'s mesh route): each model rank holds
+  its block of ``E / model`` experts (``param_blocks``), takes up to
+  ``capacity`` tokens per expert from its tokens (model-replicated, as
+  they enter the block) by a sort-free
   cumsum-rank dispatch, runs its experts, adds the weighted outputs back
   and sums over the model axis.  That sum is the only collective, with
   the gradient of the single-program math (``sharding.rules.psum`` and
@@ -122,9 +123,9 @@ def _dispatch_ranks(top_e: torch.Tensor, E: int):
 def _moe_ep_local(params: Params, x: torch.Tensor, cfg, capacity: int,
                   e_loc: int, r: int, group) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
-    """One model rank's share: ``x`` (T, D) model-replicated; the experts
-    ``[r * e_loc, (r + 1) * e_loc)`` of the whole ``params``.  -> (y
-    summed over ``group``, this rank's aux loss)."""
+    """One model rank's share: ``x`` (T, D) model-replicated; ``params``
+    the rank's block of the experts, ``[r * e_loc, (r + 1) * e_loc)``.
+    -> (y summed over ``group``, this rank's aux loss)."""
     T, D = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     w, e, probs = _route(params["router"], x, k)
@@ -146,10 +147,9 @@ def _moe_ep_local(params: Params, x: torch.Tensor, cfg, capacity: int,
                          device=x.device).index_put((dest,), tok)
     w_buf = torch.zeros(nbuf + 1, dtype=torch.float32, device=x.device
                         ).index_put((dest,), fw)
-    sl = slice(r * e_loc, (r + 1) * e_loc)
     xb = buf[:nbuf].reshape(e_loc, capacity, D)
-    yb = _expert_ffn(params["e_gate"][sl], params["e_up"][sl],
-                     params["e_down"][sl], xb).reshape(nbuf, D)
+    yb = _expert_ffn(params["e_gate"], params["e_up"], params["e_down"],
+                     xb).reshape(nbuf, D)
     contrib = yb * w_buf[:nbuf, None].to(yb.dtype)
     # empty slots point at the extra row T, dropped after the add
     y = torch.zeros((T + 1, D), dtype=x.dtype, device=x.device).index_add(

@@ -45,6 +45,13 @@ chunked loss recompute through :class:`_Recompute`, which keeps only a
 block's inputs and recomputes it in the backward pass; unlike
 ``torch.utils.checkpoint`` it also runs inside ``torch.func`` transforms
 (the federated round's ``vmap`` of ``grad``).
+
+Under active sharding rules the params are the rank's blocks
+(``sharding/rules.py::param_blocks``) and each layer computes its share
+(Megatron tensor parallelism: ``models/attention.py``, ``models/layers.py``,
+the expert-parallel MoE); ``forward``, ``prefill`` and ``decode_step``
+return the whole vocabulary's logits on every rank, and a decode cache
+holds the rank's kv heads where they split (``attention.init_cache``).
 """
 from __future__ import annotations
 
@@ -57,8 +64,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed_init, embed_lookup,
-                                       init_device, lm_head, mlp, mlp_init,
-                                       rmsnorm, rmsnorm_init)
+                                       init_device, lm_head, lm_head_block,
+                                       mlp, mlp_init, rmsnorm, rmsnorm_init,
+                                       vocab_parallel_nll)
+from repro_torch.sharding.rules import active_rules, tp_axis, use_rules
 from repro_torch.utils.tree import (leaves, paths, resolve_device,
                                    tree_map, tree_stack, unflatten)
 
@@ -112,7 +121,10 @@ class _Recompute(torch.autograd.Function):
 def _recompute(fn, *args):
     """``fn(*args)`` through :class:`_Recompute`: each of ``args`` a
     tensor, None, or a (nested) dict of tensors; ``fn`` returns a tuple of
-    tensors."""
+    tensors.  The recompute runs under the sharding rules active now, so
+    it repeats the forward pass's collectives wherever the backward pass
+    runs."""
+    rules = active_rules()
     plan, flat = [], []
     for a in args:
         if isinstance(a, dict):
@@ -133,7 +145,8 @@ def _recompute(fn, *args):
                 back.append(next(it))
             else:
                 back.append(unflatten(p, [next(it) for _ in p]))
-        return tuple(fn(*back))
+        with use_rules(rules):
+            return tuple(fn(*back))
 
     return _Recompute.apply(run, *flat)
 
@@ -259,7 +272,8 @@ def _uniform_block(x, lp, cfg, positions, window, collect_cache=False):
             lp["moe"], rmsnorm(lp["norm2"], x, cfg.norm_eps), cfg)
         x = x + y
     elif cfg.d_ff > 0:
-        x = x + mlp(lp["ffn"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
+        x = x + mlp(lp["ffn"], rmsnorm(lp["norm2"], x, cfg.norm_eps),
+                    cfg.d_ff)
     return x, aux, kv
 
 
@@ -271,7 +285,7 @@ def _ffn(x, gp, cfg, p: int):
         y, lb = moe_mod.moe_apply(_layer(gp["moe"], p // cfg.moe_every), hf,
                                   cfg)
         return x + y, lb
-    return (x + mlp(_layer(gp["ffn"], p // cfg.moe_every), hf),
+    return (x + mlp(_layer(gp["ffn"], p // cfg.moe_every), hf, cfg.d_ff),
             torch.zeros((), device=x.device))
 
 
@@ -339,14 +353,15 @@ def _encoder(params, frames, cfg):
         lp = _layer(params["enc_layers"], i)
         h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
         x = x + attn.attn_forward(lp["attn"], h, pos, cfg, causal=False)
-        x = x + mlp(lp["ffn"], rmsnorm(lp["norm_ffn"], x, cfg.norm_eps))
+        x = x + mlp(lp["ffn"], rmsnorm(lp["norm_ffn"], x, cfg.norm_eps),
+                    cfg.d_ff)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def _decoder_encdec(params, tokens, enc_out, cfg, collect_cache=False):
     """The decoder over ``tokens`` with cross attention to ``enc_out``;
     with ``collect_cache`` also the stacked {k, v, xk, xv} cache."""
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_lookup(params["embed"], tokens, cfg.vocab)
     pos = _positions(x)
     caches = []
     for i in range(cfg.n_layers):
@@ -367,20 +382,21 @@ def _decoder_encdec(params, tokens, enc_out, cfg, collect_cache=False):
             caches.append({"k": kv["k"], "v": kv["v"], "xk": xkv["k"],
                            "xv": xkv["v"]})
         x = x + o
-        x = x + mlp(lp["ffn"], rmsnorm(lp["norm_ffn"], x, cfg.norm_eps))
+        x = x + mlp(lp["ffn"], rmsnorm(lp["norm_ffn"], x, cfg.norm_eps),
+                    cfg.d_ff)
     return x, (tree_stack(caches) if collect_cache else None)
 
 
 def _head(params, x, cfg):
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_head(x, params["embed"] if cfg.tie_embeddings else None,
-                   params.get("lm_head"))
+                   params.get("lm_head"), cfg.vocab)
 
 
 def _embed(params, batch, cfg):
     """Token embeddings, after the projected patch embeddings for a VLM,
     and their positions."""
-    x = embed_lookup(params["embed"], batch["tokens"])
+    x = embed_lookup(params["embed"], batch["tokens"], cfg.vocab)
     if cfg.n_patches:
         pe = batch["patches"] @ params["patch_proj"]
         x = torch.cat([pe.to(x.dtype), x], dim=1)
@@ -440,10 +456,14 @@ def encdec_prefill(params, batch: Dict[str, torch.Tensor], cfg,
     return _head(params, x[:, -1:, :], cfg), cache
 
 
-def _chunk_nll(xc, tc, vc, table, head):
+def _chunk_nll(xc, tc, vc, table, head, vocab=0):
     """The summed next-token NLL of one sequence chunk (its logits are
-    recomputed in the backward pass)."""
-    logp = torch.log_softmax(lm_head(xc, table, head), dim=-1)
+    recomputed in the backward pass); vocabulary-parallel where the rules
+    split ``vocab``."""
+    logits, (group, r, _) = lm_head_block(xc, table, head, vocab)
+    if group is not None:
+        return torch.sum(vocab_parallel_nll(logits, tc, group, r) * vc)
+    logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, tc[..., None].long())[..., 0]
     return torch.sum(nll * vc)
 
@@ -458,8 +478,19 @@ def lm_loss(params, batch, cfg, window: int = 0, lb_weight: float = 0.01,
     full (B, S, vocab) f32 logits: each chunk's head and softmax are
     recomputed in the backward pass (:class:`_Recompute`), the chunks
     padded to whole ones and the padding masked out.  ``remat``: recompute
-    each layer in the backward pass."""
+    each layer in the backward pass.  Where the rules split the
+    vocabulary the head gives the rank's columns and the loss is
+    Megatron's vocabulary-parallel cross entropy."""
     tokens = batch["tokens"]
+    table = params["embed"] if cfg.tie_embeddings else None
+    head = params.get("lm_head")
+    if loss_chunk <= 0 and tp_axis("vocab", cfg.vocab)[0] is not None:
+        x, aux = _trunk(params, batch, cfg, window, remat)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits, (group, r, _) = lm_head_block(x[:, :-1, :], table, head,
+                                              cfg.vocab)
+        loss = vocab_parallel_nll(logits, tokens[:, 1:], group, r).mean()
+        return loss + lb_weight * aux, {"nll": loss, "lb": aux}
     if loss_chunk <= 0:
         logits, aux = forward(params, batch, cfg, window, remat)
         logp = torch.log_softmax(logits[:, :-1, :], dim=-1)
@@ -469,8 +500,6 @@ def lm_loss(params, batch, cfg, window: int = 0, lb_weight: float = 0.01,
 
     x, aux = _trunk(params, batch, cfg, window, remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    table = params["embed"] if cfg.tie_embeddings else None
-    head = params.get("lm_head")
     B, S = tokens.shape
     Sm1 = S - 1
     C = min(loss_chunk, Sm1)
@@ -484,8 +513,8 @@ def lm_loss(params, batch, cfg, window: int = 0, lb_weight: float = 0.01,
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
         total = total + _recompute(
-            lambda *a: (_chunk_nll(*a),), xs[:, i], tg[:, i], valid[:, i],
-            table, head)[0]
+            lambda *a: (_chunk_nll(*a, vocab=cfg.vocab),), xs[:, i],
+            tg[:, i], valid[:, i], table, head)[0]
     loss = total / (B * Sm1)
     return loss + lb_weight * aux, {"nll": loss, "lb": aux}
 
@@ -577,7 +606,7 @@ def decode_step(params, tokens: torch.Tensor, pos, cfg, cache: Tree, *,
     sharding rules): each layer's attention is
     ``attn.attn_decode_seqshard``, ``cache`` this rank's sequence block
     and ``pos`` one int."""
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_lookup(params["embed"], tokens, cfg.vocab)
     if seq_shard_kv and (cfg.is_hybrid or cfg.is_encoder_decoder
                          or cfg.is_ssm_only):
         raise ValueError("seq_shard_kv takes the uniform attention stack "
@@ -611,7 +640,8 @@ def decode_step(params, tokens: torch.Tensor, pos, cfg, cache: Tree, *,
             o, _ = attn.attn_decode(lp["xattn"], rmsnorm(
                 lp["norm_x"], x, cfg.norm_eps), pos, cfg, lc, cross=True)
             x = x + o
-            x = x + mlp(lp["ffn"], rmsnorm(lp["norm_ffn"], x, cfg.norm_eps))
+            x = x + mlp(lp["ffn"], rmsnorm(lp["norm_ffn"], x, cfg.norm_eps),
+                    cfg.d_ff)
         elif cfg.is_ssm_only:
             o, lc2 = ssm_mod.ssm_decode(lp["ssm"], h, cfg, lc)
             x = x + o
@@ -628,6 +658,7 @@ def decode_step(params, tokens: torch.Tensor, pos, cfg, cache: Tree, *,
                     lp["moe"], rmsnorm(lp["norm2"], x, cfg.norm_eps), cfg)
                 x = x + y
             elif cfg.d_ff > 0:
-                x = x + mlp(lp["ffn"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
+                x = x + mlp(lp["ffn"], rmsnorm(lp["norm2"], x, cfg.norm_eps),
+                    cfg.d_ff)
         new.append(lc2)
     return _head(params, x, cfg), tree_stack(new)

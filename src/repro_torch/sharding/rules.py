@@ -13,6 +13,13 @@ process per rank, each running the same program, and the explicit bodies
 become explicit collectives on the process group of a mesh axis
 (:func:`axis_group`, the twin of ``jax.lax.axis_index`` and an axis name).
 A rank holds its own block of a sharded tensor (:func:`local_block`).
+
+Parameters are held the same way (Megatron tensor parallelism): under
+active rules a rank holds the block :func:`param_blocks` cuts from each
+leaf, as the JAX package's ``param_shardings`` places it, and the layers
+compute their share of each product on it (:func:`tp_axis` says where a
+layer's dim is split; :func:`copy_to`, :func:`psum` and :func:`gather` are
+the collectives with the single program's gradient).
 """
 from __future__ import annotations
 
@@ -133,10 +140,26 @@ def use_rules(rules: Optional[Rules]):
 
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """The identity.  In the JAX package a sharding constraint only moves
-    GSPMD's layout and the order of its reductions, never the values; the
-    port computes such a layer replicated over the axes the constraint
-    names."""
+    GSPMD's layout, never the values; the port's layers place their own
+    activations (each rank's share of a split layer, :func:`tp_axis`)."""
     return x
+
+
+def tp_axis(logical: str, whole: int) -> Tuple[Any, int, int]:
+    """(process group, this rank's index, size) of the mesh axes over
+    which the active rules split a parameter dim of logical axis
+    ``logical`` and ``whole`` entries, as ``Rules.spec`` decides it: the
+    rank's block of that dim is entries ``[index * whole / size, (index +
+    1) * whole / size)``.  (None, 0, 1) with no rules, where the rules map
+    the axis nowhere, or where the axis does not divide ``whole`` (the
+    leaf is then held whole)."""
+    rules = active_rules()
+    if rules is None:
+        return None, 0, 1
+    axis = rules.spec((logical,), (whole,))[0]
+    if axis is None:
+        return None, 0, 1
+    return axis_group(rules.mesh, axis)
 
 
 # The JAX package's ``shard_map`` version shim has no counterpart: a
@@ -287,6 +310,59 @@ def param_shardings(rules: Rules, params):
     return unflatten(paths(params), param_specs(rules, params))
 
 
+# (leaf path, block shape) -> the whole leaf's shape, for every block
+# ``param_blocks`` cut in this process: a block does not tell by itself
+# whether a dim was split (qwen3's 151,936-row vocabulary at 16 gives
+# blocks of 9,496 rows; whisper's 51,865 rows at 16 stay whole)
+_WHOLE: Dict[Tuple[str, Tuple[int, ...]], Tuple[int, ...]] = {}
+
+
+def param_blocks(params, rules: Rules):
+    """This rank's block of every leaf under :func:`param_specs`, in a tree
+    shaped like ``params``: the twin of placing them by
+    ``param_shardings``.  A split leaf's block is a tensor of its own (not
+    a view of the whole); a leaf held whole is returned as it is."""
+    names, xs = paths(params), leaves(params)
+    out = []
+    for name, x, spec in zip(names, xs, param_specs(rules, params)):
+        b = local_block(x, spec, rules.mesh)
+        if tuple(b.shape) != tuple(x.shape):
+            b = b.clone()
+        _WHOLE["/".join(name), tuple(b.shape)] = tuple(x.shape)
+        out.append(b)
+    return unflatten(names, out)
+
+
+def block_specs(rules: Rules, blocks) -> list:
+    """Each block's spec (that of its whole leaf under ``rules``), in
+    ``utils.tree`` leaf order, for blocks :func:`param_blocks` cut (or
+    leaves whose mesh axes all have one rank: a block is then the
+    leaf)."""
+    specs = []
+    for name, b in zip(paths(blocks), leaves(blocks)):
+        key = ("/".join(name), tuple(b.shape))
+        logical = logical_axes_for(key[0], b.dim())
+        whole = _WHOLE.get(key)
+        if whole is None:
+            spec = rules.spec(logical, key[1])
+            if axes_size(rules.mesh, spec) != 1:
+                raise ValueError(f"{key[0]} of shape {key[1]} is no block "
+                                 f"that param_blocks cut: its whole shape "
+                                 f"is unknown")
+            whole = key[1]
+        specs.append(rules.spec(logical, whole))
+    return specs
+
+
+def gather_params(blocks, rules: Rules):
+    """The whole params from every rank's blocks (the inverse of
+    :func:`param_blocks`): an all-gather of each split dim."""
+    names = paths(blocks)
+    return unflatten(names, [
+        gather_block(b, sp, rules.mesh)
+        for b, sp in zip(leaves(blocks), block_specs(rules, blocks))])
+
+
 def gather_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """The whole tensor from every rank's block under ``spec`` (the
     inverse of :func:`local_block`): an all-gather over the axes of each
@@ -354,6 +430,63 @@ class _CopyTo(torch.autograd.Function):
         return _CopyTo.apply(x, group), in_dims[0]
 
 
+class _Gather(torch.autograd.Function):
+    """The blocks of ``group`` joined along ``dim``; the cotangent of the
+    whole is taken as the same on every rank, so the backward is this
+    rank's block of it (a ``copy_to`` after it makes that a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(x, dim, group, index, size):
+        return all_gather_dim(x, dim, group, size)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.dim, _, ctx.index, _ = inputs
+        ctx.n = x.shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, \
+            None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, group, index, size):
+        if in_dims[0] is None:
+            return _Gather.apply(x, dim, group, index, size), None
+        return _Gather.apply(x.movedim(in_dims[0], 0), dim + 1, group,
+                             index, size), 0
+
+
+class _Pmax(torch.autograd.Function):
+    @staticmethod
+    def forward(x, group):
+        return _all_reduce(x, group, dist.ReduceOp.MAX)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _Pmax.apply(x, group), in_dims[0]
+
+
+def gather(x: torch.Tensor, dim: int, group, index: int, size: int
+           ) -> torch.Tensor:
+    """The whole tensor from the ranks' blocks along ``dim`` (this rank's
+    ``index`` of ``size``), for a layer that uses the whole alike on every
+    rank; its gradient is this rank's block of the whole's.  The identity
+    for a group of None."""
+    if group is None:
+        return x
+    return _Gather.apply(x, dim % x.dim(), group, index, size)
+
+
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over the ranks of ``group`` (``jax.lax.psum``); the cotangent
     passes through unchanged.  The identity for a group of None."""
@@ -376,4 +509,4 @@ def pmean(x: torch.Tensor, group, size: int) -> torch.Tensor:
 
 def pmax(x: torch.Tensor, group) -> torch.Tensor:
     """The maximum over the ranks of ``group`` (no gradient)."""
-    return x if group is None else _all_reduce(x, group, dist.ReduceOp.MAX)
+    return x if group is None else _Pmax.apply(x.detach(), group)

@@ -117,33 +117,36 @@ FAKE_WORLD = textwrap.dedent('''
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
-    from repro_torch.sharding.rules import (Rules, axes_size,
-                                            param_specs, mesh_size)
-    from repro_torch.utils.tree import leaves
+    from repro_torch.core import fed_step as F
+    from repro_torch.sharding.rules import (Rules, active_rules, mesh_size,
+                                            param_blocks, use_rules)
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
     mesh = make_host_mesh(2, 2)
     cfg = get_smoke_config("smollm_135m")
     params = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    blocks = param_blocks(params, Rules(mesh))
+    loss = lambda p, b: T.lm_loss(p, b, cfg)[0]
     out = {}
     for pq in (8, 4):
         fed = FedConfig(n_groups=2, local_steps=1, lr=1e-2, p_q=pq)
-        step = make_fed_train_step(lambda p, b: T.lm_loss(p, b, cfg)[0], fed)
+        step = make_fed_train_step(loss, fed)
         box = {}
         def fn(*a):
             box["out"] = step(*a)
             return box["out"]
-        rec = D.trace_step(fn, [params, {"tokens": torch.zeros(
-            (4, 32), dtype=torch.int32)}, torch.zeros(2, dtype=torch.int32)],
+        # the rank's group: its 2 rows of the (4, 32) batch
+        rec = D.trace_step(fn, [blocks, {"tokens": torch.zeros(
+            (2, 32), dtype=torch.int32)}, torch.zeros(2, dtype=torch.int32)],
             mesh)
-        specs = param_specs(Rules(mesh), params)
-        model_leaves = [x for x, sp in zip(leaves(params), specs)
-                        if "model" in [a for a in sp if a]]
-        out[pq] = {"coll": rec["collectives"],
+        # the local step alone: its tensor-parallel collectives
+        def local(w, b):
+            with use_rules(F._local_rules(active_rules(), fed)):
+                return torch.func.vmap(
+                    lambda x: F._group_local_train(w, x, loss, fed))(b)
+        tp = D.trace_step(local, [blocks, {"tokens": torch.zeros(
+            (1, 1, 2, 32), dtype=torch.int32)}], mesh)["collectives"]
+        out[pq] = {"coll": rec["collectives"], "local": tp,
                    "wire": int(box["out"][1]["wire_bytes"]),
-                   "model_gathers": len(model_leaves),
-                   "model_bytes": sum(x.numel() * x.element_size()
-                                      for x in model_leaves),
-                   "model": mesh_size(mesh, "model"),
                    "data": mesh_size(mesh, "data")}
     # the functional collectives: the group by its name, the reduce op a
     # string beside it, a wait moving nothing
@@ -160,6 +163,39 @@ FAKE_WORLD = textwrap.dedent('''
     dist.destroy_process_group()
     print(json.dumps(out))
 ''')
+
+
+FAKE_WORLD_16 = textwrap.dedent('''
+    import json
+    import torch, torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs.base import (INPUT_SHAPES, InputShape,
+                                          get_smoke_config)
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    INPUT_SHAPES["tiny_train"] = InputShape("tiny_train", 32, 4, "train")
+    INPUT_SHAPES["tiny_prefill"] = InputShape("tiny_prefill", 32, 4,
+                                              "prefill")
+    INPUT_SHAPES["tiny_decode"] = InputShape("tiny_decode", 64, 4, "decode")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=16)
+    out = {}
+    for shape in ((4, 4), (1, 16)):
+        mesh = make_host_mesh(*shape)
+        for arch in ("qwen3_1_7b", "granite_34b"):
+            for s in ("tiny_train", "tiny_prefill", "tiny_decode"):
+                rec = D.trace_record(get_smoke_config(arch), s, mesh,
+                                     loss_chunk=8)
+                out[f"{shape}/{arch}/{s}"] = rec["memory"]
+    print(json.dumps(out))
+''')
+
+
+class _Mesh16x16:
+    """The (16, 16) mesh's axis names and sizes, all ``Rules.spec``
+    reads."""
+    mesh = torch.zeros(16, 16)
+    mesh_dim_names = ("data", "model")
 
 
 def _start(argv):
@@ -186,6 +222,7 @@ def runs():
         "reference2": _start([sys.executable, "-c", REFERENCE,
                               *archs[3:]]),
         "world": _start([sys.executable, "-c", FAKE_WORLD]),
+        "world16": _start([sys.executable, "-c", FAKE_WORLD_16]),
         "full": _start([sys.executable, "-m", "repro_torch.launch.dryrun",
                         "--arch", "qwen3_1_7b", "--shape", "decode_32k",
                         "--out",
@@ -439,20 +476,24 @@ def test_collective_without_group_raises():
 
 def test_fed_round_collectives_are_its_wire(world):
     """A ``gather_q`` round of SmolLM's smoke config on a (2, 2) mesh of
-    a fake world of 4: the all-gathers over ``data`` move the round's
-    reported wire (levels and scales; at ``p_q`` 4 two levels a byte),
-    the all-gathers over ``model`` the model-sharded leaves, and one
-    all-reduce the two metrics' sums."""
+    a fake world of 4, on the rank's blocks: beside its local step's
+    tensor-parallel collectives (the same step traced alone), the
+    all-gathers over ``data`` move the round's reported wire (levels and
+    scales; at ``p_q`` 4 two levels a byte) and one all-reduce the two
+    metrics' sums.  No all-gather over ``model`` remains: the round
+    returns the blocks."""
     out = {k: v for k, v in world.items() if k != "functional"}
     assert out["4"]["wire"] < out["8"]["wire"]
     for pq, r in out.items():
-        coll = r["coll"]
-        assert coll["all-gather_count"] == 2 + r["model_gathers"], coll
-        model = r["model_bytes"] * (r["model"] - 1) / r["model"]
+        coll, tp = r["coll"], r["local"]
+        assert tp["all-reduce_count"] > 0 and tp["all-gather_count"] > 0
+        assert coll["all-gather_count"] == 2 + tp["all-gather_count"], coll
         data = r["wire"] * (r["data"] - 1)
-        assert coll["all-gather"] == pytest.approx(data + model, rel=1e-12)
-        assert coll["all-reduce_count"] == 1
-        assert coll["all-reduce"] == 2 * 8 * 3 / 4
+        assert coll["all-gather"] == pytest.approx(data + tp["all-gather"],
+                                                   rel=1e-12)
+        assert coll["all-reduce_count"] == 1 + tp["all-reduce_count"]
+        assert coll["all-reduce"] == pytest.approx(
+            2 * 8 * 3 / 4 + tp["all-reduce"], rel=1e-12)
         assert coll["total"] == coll["all-gather"] + coll["all-reduce"]
 
 
@@ -466,6 +507,18 @@ def test_wire_matches_reference(arch):
         got = F.fed_wire_bytes(S.param_specs(cfg), F.FedConfig(n_groups=G),
                                G)
         assert got == want
+
+
+def test_arguments_are_the_rules_block_on_16_ranks(runs):
+    """Smoke configs of Qwen3 (whole q heads, mid-head kv at model 4; mid-
+    head q at 16) and Granite (MQA) on a fake world of 16, meshes (4, 4)
+    and (1, 16): in the round, the prefill and the decode each rank holds
+    exactly the blocks the rules give it, well under the whole."""
+    recs = json.loads(_finish(runs[0]["world16"]))
+    assert len(recs) == 12
+    for key, mem in recs.items():
+        assert mem["argument_size_in_bytes"] == \
+            mem["rules_block_size_in_bytes"], key
 
 
 def test_full_width_record(runs):
@@ -483,13 +536,19 @@ def test_full_width_record(runs):
     assert r["active_params"] == cfg.active_param_count()
     assert r["rolling_window"] == 0
     mem = r["memory"]
-    # whole parameters (bf16) and the rank's 8 rows of the cache
-    params = sum(x.numel() * 2 for x in leaves(S.param_specs(
-        B.get_config("qwen3_1_7b"))))
+    # the rank's blocks of the bf16 parameters (each split leaf a 16th:
+    # every split dim of Qwen3 divides 16) and its 8 rows of the cache,
+    # whose 8 kv heads do not split 16 ways
+    specs = D.param_shardings(D.Rules(_Mesh16x16()), S.param_specs(
+        B.get_config("qwen3_1_7b")))
+    params = sum(x.numel() * 2 // (16 if any(sp) else 1) for x, sp in zip(
+        leaves(S.param_specs(B.get_config("qwen3_1_7b"))),
+        leaves(specs, is_leaf=lambda v: isinstance(v, tuple))))
     cache = 2 * 2 * cfg.n_layers * 8 * 32768 * cfg.n_kv_heads * cfg.head_dim
     assert mem["argument_size_in_bytes"] == params + cache + 8 * 4 + 4
-    assert mem["rules_block_size_in_bytes"] < mem["argument_size_in_bytes"]
-    assert r["cost"]["flops"] > 0 and r["collectives"]["total"] == 0
+    assert mem["rules_block_size_in_bytes"] == mem["argument_size_in_bytes"]
+    # the attention's and the MLP's partial sums, the wk/wv gathers
+    assert r["cost"]["flops"] > 0 and r["collectives"]["all-reduce"] > 0
 
 
 def test_unsharded_gather_q_round_takes_bf16_params():

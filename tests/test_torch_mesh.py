@@ -13,8 +13,10 @@ seed, as numpy), then runs beside each other:
 
 What is held:
 
-* **The federated round** under ``use_rules(Rules(mesh))`` for
-  ``phi3_5_moe_42b`` (the reference test's config, its MoE layers on the
+* **The federated round** under ``use_rules(Rules(mesh))``, each rank
+  passing its blocks of the params (``param_blocks``) and its batch rows
+  (its group's), the round's blocks gathered whole (``gather_params``)
+  for the comparison, for ``phi3_5_moe_42b`` (the reference test's config, its MoE layers on the
   expert-parallel route) and ``smollm_135m``, over ``gather_q`` at p_q 8
   and 4, ``gather_f32`` and ``psum``, ``tp`` and ``dp`` (``dp`` on the
   dense model: the MoE under ``dp`` raises, ROADMAP.md Queue C).  Params
@@ -26,13 +28,14 @@ What is held:
 * **The EP MoE** at model 2 (in the world) and model 1 (in this process,
   a world of 1 and a JAX 1x1 mesh): ``y``, ``aux`` and the gradient of
   every leaf (router, the rank's block of ``e_gate``/``e_up``/``e_down``,
-  the input) within 1e-5, with the tokens replicated (the fed round's
-  ``batch=None``); with the tokens over ``data`` (the outer rules) ``y``
+  which it holds, the input) within 1e-5, with the tokens replicated (the
+  fed round's ``batch=None``); with the tokens over ``data`` (the outer rules) ``y``
   and ``aux`` within 1e-5, each data rank holding its batch block.
 * **The sequence-sharded decode** on ``granite_34b`` (one KV head): 16
   steps of ``decode_step(seq_shard_kv=True)``, each rank holding its
-  batch rows and its half of the cache: logits within 1e-5 of the JAX
-  seqshard run and within the reference's 5e-4 of the full forward.
+  blocks of the params, its batch rows and its half of the cache: logits
+  within 1e-5 of the JAX seqshard run and within the reference's 5e-4 of
+  the full forward.
 """
 import os
 import subprocess
@@ -52,7 +55,7 @@ from repro_torch.core import fed_step as F
 from repro_torch.launch.mesh import init_world, make_host_mesh, spawn_world
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
-from repro_torch.sharding.rules import Rules, use_rules
+from repro_torch.sharding.rules import Rules, param_blocks, use_rules
 from repro_torch.utils.tree import from_numpy, leaves, paths
 
 from torch_fed_rules import F32_TOL, assert_gather_q_close
@@ -162,8 +165,9 @@ from repro_torch.core.compression import approx_topk_threshold_rows
 from repro_torch.launch.mesh import init_world, make_host_mesh
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
-from repro_torch.sharding.rules import (Rules, axis_index, local_block,
-                                        logical_axes_for, use_rules)
+from repro_torch.sharding.rules import (Rules, axis_index, block_specs,
+                                        gather_params, local_block,
+                                        param_blocks, use_rules)
 from repro_torch.utils.tree import from_numpy, leaves, paths, tree_map
 init_world("gloo")
 rank = dist.get_rank()
@@ -180,17 +184,22 @@ stale = torch.tensor(STALE)
 
 def block_stats(loss, fed, w, batch):
     # per leaf the largest scale and threshold of a (group, block) row,
-    # from this rank's deltas, the largest over the world
+    # from this rank's deltas, the largest over the world; the round
+    # trains on the blocks under tp, on the whole leaves under dp
     G = fed.n_groups
     gb = tree_map(lambda x: x.reshape((G, 1, x.shape[0] // G)
                                       + x.shape[1:])[d:d + 1], batch)
-    local = torch.func.vmap(lambda b: F._group_local_train(w, b, loss, fed))
+    blocks = param_blocks(w, rules)
+    start = w if fed.group_parallelism == "dp" else blocks
+    local = torch.func.vmap(lambda b: F._group_local_train(start, b, loss,
+                                                           fed))
     with use_rules(F._local_rules(rules, fed)):
         wl, _ = local(gb)
     stats = []
-    for name, a, w0 in zip(paths(w), leaves(wl), leaves(w)):
-        spec = rules.spec(logical_axes_for("/".join(name), w0.dim()),
-                          w0.shape)
+    for a, w0, spec in zip(leaves(wl), leaves(start),
+                           block_specs(rules, blocks)):
+        if fed.group_parallelism != "dp":
+            spec = (None,) * w0.dim()
         rows = local_block(a - w0[None], (None,) + spec, mesh).reshape(1, -1)
         sc = max(float(F.compress_delta(r, fed)[1]) for r in rows)
         thr = float(approx_topk_threshold_rows(
@@ -207,11 +216,12 @@ for model, sched, pq, gp in ROUNDS:
     fed = F.FedConfig(n_groups=2, local_steps=1, lr=1e-2, schedule=sched,
                       p_q=pq, group_parallelism=gp)
     loss = lambda p, b, cfg=cfg: T.lm_loss(p, b, cfg)[0]
-    with use_rules(rules):
-        p, met = F.make_fed_train_step(loss, fed)(params[model], batch,
-                                                  stale)
+    with use_rules(rules):      # this rank's group: its two batch rows
+        p, met = F.make_fed_train_step(loss, fed)(
+            param_blocks(params[model], rules),
+            tree_map(lambda x: x[2 * d:2 * d + 2], batch), stale)
     name = f"{model}-{sched}-{pq}-{gp}"
-    for i, leaf in enumerate(leaves(p)):
+    for i, leaf in enumerate(leaves(gather_params(p, rules))):
         out[f"round/{name}/{i}"] = leaf.numpy()
     for k in ("local_loss", "delta_norm", "alpha_t"):
         out[f"{k}/{name}"] = np.asarray(float(met[k]))
@@ -223,15 +233,16 @@ try:
     with use_rules(rules):
         F.make_fed_train_step(lambda p, b: T.lm_loss(p, b, cfgs["dense"])[0],
                               F.FedConfig(n_groups=3))(
-            params["dense"], {"tokens": torch.from_numpy(
+            param_blocks(params["dense"], rules), {"tokens": torch.from_numpy(
                 TOKENS[:3] % cfgs["dense"].vocab)}, torch.zeros(3))
     out["g_error"] = np.asarray(0)
 except ValueError:
     out["g_error"] = np.asarray(1)
-# the EP MoE at model 2
+# the EP MoE at model 2, on this rank's block of the experts
 cfg = cfgs["moe"]
-mp = {k: v[0].clone().requires_grad_(True)
-      for k, v in params["moe"]["layers"]["moe"].items()}
+mp = {k: v.requires_grad_(True) for k, v in param_blocks(
+    {k: v[0] for k, v in params["moe"]["layers"]["moe"].items()},
+    rules).items()}
 x = torch.from_numpy(flat["ep/x"]).requires_grad_(True)
 c = torch.from_numpy(flat["ep/c"])
 with use_rules(rules.with_overrides(batch=None)):
@@ -253,8 +264,9 @@ cache = T.init_decode_state(cfg, 2, S // 2, dtype=torch.float32,
 logits = []
 with torch.no_grad(), use_rules(rules):
     for t in range(S):
-        dl, cache = T.decode_step(params["granite"], toks[:, t:t + 1], t,
-                                  cfg, cache, seq_shard_kv=True)
+        dl, cache = T.decode_step(param_blocks(params["granite"], rules),
+                                  toks[:, t:t + 1], t, cfg, cache,
+                                  seq_shard_kv=True)
         logits.append(dl[:, 0].numpy())
 out["seq/logits"] = np.stack(logits)
 np.savez(os.path.join(sys.argv[2], f"rank{rank}.npz"), **out)
@@ -360,8 +372,8 @@ def _block(key, a, m, n_model=2):
 
 def test_ep_moe_model_2_matches_jax(runs):
     """Tokens replicated (the fed round's ``batch=None``): y, aux and the
-    gradient of every leaf, each rank's expert block against the
-    reference's same block."""
+    gradient of every leaf, each rank's expert block (the one it holds)
+    against the reference's same block."""
     _, ref, ranks = runs
     for r, got in enumerate(ranks):
         m = r % 2
@@ -369,8 +381,7 @@ def test_ep_moe_model_2_matches_jax(runs):
         _close(got["ep/aux"], ref["ep/aux"])
         _close(got["ep/gx"], ref["ep/gx"])
         for k in ("router", "e_gate", "e_up", "e_down"):
-            _close(_block(k, got[f"ep/gp/{k}"], m),
-                   _block(k, ref[f"ep/gp/{k}"], m))
+            _close(got[f"ep/gp/{k}"], _block(k, ref[f"ep/gp/{k}"], m))
 
 
 def test_ep_moe_tokens_over_data_match_jax(runs):
@@ -455,9 +466,10 @@ def test_moe_under_dp_raises(world_of_one):
     batch = {"tokens": torch.randint(0, cfg.vocab, (4, 8),
                                      generator=torch.Generator()
                                      .manual_seed(0))}
-    with use_rules(Rules(world_of_one)):
+    rules = Rules(world_of_one)
+    with use_rules(rules):
         with pytest.raises(ValueError, match="Queue C"):
-            step(w, batch, torch.zeros(2))
+            step(param_blocks(w, rules), batch, torch.zeros(2))
     with pytest.raises(ValueError, match="group_parallelism"):
         F.make_fed_train_step(lambda p, b: 0.0,
                               F.FedConfig(group_parallelism="ep"))

@@ -174,3 +174,39 @@ def test_local_block_cuts_like_the_spec(kind):
         np.testing.assert_array_equal(got.numpy(), want)
     assert R.axes_size(StandIn(shape, names), spec) == int(np.prod(
         [R.axis_index(StandIn(shape, names), ax)[1] for ax in spec if ax]))
+
+
+@pytest.mark.parametrize("kind", ["single", "wide", "pod"])
+def test_param_blocks_are_the_specs_blocks(kind):
+    """At each coordinate ``param_blocks`` gives every leaf's block under
+    ``param_specs``: a split leaf's block is a tensor of its own, a leaf
+    held whole is the leaf itself (whisper's vocabulary of 515 divides no
+    model axis), and ``block_specs`` gives the whole leaves' specs back
+    from the blocks; a tensor it did not cut raises."""
+    import dataclasses
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer as T
+    shape, names = MESHES[kind]
+    for arch, vocab in (("qwen3_1_7b", None), ("whisper_tiny", 515)):
+        cfg = get_smoke_config(arch)
+        if vocab:
+            cfg = dataclasses.replace(cfg, vocab=vocab)
+        params = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+        whole = 0
+        for coord in np.ndindex(*shape):
+            rules = R.Rules(StandIn(shape, names, list(coord)))
+            specs = R.param_specs(rules, params)
+            blocks = R.param_blocks(params, rules)
+            assert R.block_specs(rules, blocks) == specs
+            for x, b, sp in zip(leaves(params), leaves(blocks), specs):
+                assert torch.equal(b, R.local_block(x, sp, rules.mesh))
+                if R.axes_size(rules.mesh, sp) > 1:
+                    assert b.untyped_storage().data_ptr() != \
+                        x.untyped_storage().data_ptr()
+                else:
+                    assert b is x
+                    whole += x.dim() == 2 and x.shape[0] == vocab
+        assert whole > 0 if vocab else whole == 0
+    rules = R.Rules(StandIn(shape, names))
+    with pytest.raises(ValueError, match="no block that param_blocks cut"):
+        R.block_specs(rules, {"wq": torch.zeros(3, 8)})

@@ -202,13 +202,15 @@ def test_chip_smoke_mesh_phases_rehearse_on_cpu(capsys):
 
 
 def test_chip_smoke_dryrun_phases_rehearse_on_cpu(capsys):
-    """chip_smoke.py's phases 44-47 on CPU tensors at the smoke configs:
+    """chip_smoke.py's phases 44-48 on CPU tensors at the smoke configs:
     the recomputing federated round within the gather_q rule of the plain
-    one, the dry run in processes of its own (its two cheap records on a
-    rehearsal), the dry run's predictions held to a real run (here the CPU
-    run, whose arguments must still be predicted exactly), and two of the
-    example twins run in this process with their lines captured.  All
-    pass: each launch check expects 0 launches off the card."""
+    one, the dry run in a process of its own (its one record, arguments
+    the rules' block), the dry run's predictions held to a real run (here
+    the CPU run, whose arguments must still be predicted exactly), two of
+    the example twins run in this process with their lines captured, and
+    a tensor-parallel rank of a fake world of 4 (its blocks' bytes the
+    prediction and the rules' block).  All pass: each launch check
+    expects 0 launches off the card."""
     sys.path.insert(0, REPO)
     try:
         import chip_smoke
@@ -219,7 +221,7 @@ def test_chip_smoke_dryrun_phases_rehearse_on_cpu(capsys):
                              twins=("torch_quickstart.py",
                                     "torch_compression_kernel_demo.py"))
     for phase in (smoke.fed_remat, smoke.dryrun_host, smoke.dryrun_vs_card,
-                  smoke.example_twins):
+                  smoke.example_twins, smoke.tp_rank):
         smoke.phase(phase.__name__, phase)
     assert smoke.failures == []
     out = capsys.readouterr().out
@@ -227,8 +229,12 @@ def test_chip_smoke_dryrun_phases_rehearse_on_cpu(capsys):
     assert rr["loss_diff"] <= 1e-4
     recs = smoke.dryrun["records"]
     assert [(r["arch"], r["shape"]) for r in recs] == [
-        ("qwen3_1_7b", "decode_32k"), ("mamba2_370m", "long_500k")]
+        ("qwen3_1_7b", "decode_32k")]
     assert all("error" not in r for r in recs)
+    for key in ("prefill", "round"):
+        tp = smoke.tp[key]
+        assert tp["argument_bytes"] == tp["rules_block"] > 0
+        assert tp["collectives"] > 0
     for key in ("decode", "train"):
         assert smoke.dryrun["vs_card"][key]["argument_bytes"] > 0
     assert "torch_quickstart.py --budget 2 --samples 200: 4 lines" in out
