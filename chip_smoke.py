@@ -252,12 +252,14 @@ Phases, in order; the script exits nonzero if any of them fails:
    keep the channel's rows): local losses within 1e-4, params within the
    CPU tests' gather_q rule, 3 launches of B a round; each round's ms
    and ``max_memory_allocated``.
-45. The dry run on this host (``launch/dryrun.py``, in a process of its
-   own joining a fake world of 256 ranks; the card is not used):
-   Qwen3-1.7B's decode_32k on the 16 x 16 mesh, no error, its arguments
-   equal to the rules' block (each rank holds its blocks of the
-   parameters); its arguments, temp, TFLOP and collective bytes a rank,
-   and the wall.  The whole grid is ``results/torch/dryrun.json``.
+45. The dry run on this host (``launch/dryrun.py``, one process a record
+   side by side, each joining a fake world of 256 ranks; the card is not
+   used): Qwen3-1.7B's and Mamba2-370M's decode_32k on the 16 x 16 mesh,
+   no error, their arguments equal to the rules' block (each rank holds
+   its blocks of the parameters, and Mamba2's rank its heads of the SSM
+   state: 766,939,172 B); their arguments, temp, TFLOP and collective
+   bytes a rank, and the wall.  The whole grid is
+   ``results/torch/dryrun.json``.
 46. The dry run held to the card: ``trace_step`` with no mesh on
    Qwen3-1.7B's ``decode_step`` (batch 8, a 4,096-slot cache, bf16) and
    SmolLM-135M's plain step (batch 8 x 512, ``remat=True``, bf16), then
@@ -281,9 +283,23 @@ Phases, in order; the script exits nonzero if any of them fails:
    inputs asks of the caching allocator equal to ``trace_step``'s
    predicted arguments and the rules' block, the peak within 15% of the
    prediction, kernel B's launches in the round, the ms.  The values are
-   not held (a fake group moves no data).  Then one JSON line of
-   kernels, the card's ``nvidia-smi`` line, and the last line ``{"ok":
-   true, "device": {...}}``.
+   not held (a fake group moves no data).
+49. Head-parallel Mamba2 as rank 0 of the same fake world of 16 on a (1,
+   16) mesh, f32: each mixer runs the rank's 2 of Mamba2-370M's 32
+   ``ssm_heads`` (kernel C on them) and holds its block of the decode
+   state.  At full width (48 layers, d_model 1024): a prefill of 4 x 512
+   with the state, 16 greedy decode steps on the rank's state block, one
+   federated round (``gather_q``, ``tp``, 4 groups x 1 step, 4 x 512,
+   ``remat``): arguments equal to the prediction and the rules' block,
+   peaks within 15% of the prediction, kernel C 48 launches in the
+   prefill and 96 in the round (the forward and its recompute), B in
+   the round, the ms.  One Jamba mixer at full width (128 heads, 8 a
+   rank, N = 16) on 4 x 512: one launch of C, its ms.  Kernel C against
+   its plain version within ``SSD_TOL`` at the rank's shapes (2 and 8
+   heads a rank) and at one head a rank (a half-empty head group), each
+   timed with its bound.  Then one JSON line of kernels, the card's
+   ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
+   {...}}``.
 
 Every card-against-CPU comparison asks for equal time, round and byte
 columns and accuracy within ``ACC_TOL``.
@@ -366,6 +382,9 @@ LM_ACC_TOL = 0.025
 EP_TOL = 1e-4
 # the sequence-sharded decode against plain decode, on the card
 SEQSHARD_TOL = 1e-4
+# Mamba2-370M's decode_32k at 16 x 16 (batch 8 a rank): the rules' block
+# of its params, tokens, position and cache, the state on 2 of 32 heads
+MAMBA2_DECODE_BLOCK = 766_939_172
 
 
 def die(msg: str) -> None:
@@ -545,6 +564,10 @@ class Smoke:
         # phase 48: rows, tokens a row and the fake world's model ranks
         self.tp_shape = (4, 32, 4) if ssm_smoke else (4, 512, 16)
         self.tp = {}
+        # phase 49: rows, tokens a row, the fake world's model ranks and
+        # the greedy decode steps of the head-parallel Mamba2
+        self.ssm_tp_shape = (4, 64, 4, 4) if ssm_smoke else (4, 512, 16, 16)
+        self.ssm_tp = {}
 
     def sync(self):
         if self.dev.type == "cuda":
@@ -3945,12 +3968,15 @@ class Smoke:
 
     # -- phase 45 -----------------------------------------------------------
     def dryrun_host(self):
-        """``python -m repro_torch.launch.dryrun`` on this host, in a
-        process of its own (it joins a fake world): Qwen3-1.7B's
-        decode_32k on the 16 x 16 mesh, its arguments held to the rules'
-        block (the whole grid is ``results/torch/dryrun.json``)."""
+        """``python -m repro_torch.launch.dryrun`` on this host, one
+        process a record, side by side (each joins a fake world):
+        Qwen3-1.7B's and Mamba2-370M's decode_32k on the 16 x 16 mesh,
+        their arguments held to the rules' block (Mamba2's to its
+        766,939,172 B: the rank's heads of the state; the whole grid is
+        ``results/torch/dryrun.json``)."""
         import tempfile
-        runs = [("qwen3_1_7b", "decode_32k", False)]
+        runs = [("qwen3_1_7b", "decode_32k", False),
+                ("mamba2_370m", "decode_32k", False)]
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
         recs = []
         with tempfile.TemporaryDirectory() as tmp:
@@ -3990,6 +4016,12 @@ class Smoke:
                         f"the dry run's {r['arch']} {r['shape']} holds "
                         f"{mem['argument_size_in_bytes']} B, not the rules' "
                         f"block of {mem['rules_block_size_in_bytes']} B")
+            if r["arch"] == "mamba2_370m":
+                self.expect(mem["argument_size_in_bytes"]
+                            == MAMBA2_DECODE_BLOCK,
+                            f"Mamba2-370M's decode_32k holds "
+                            f"{mem['argument_size_in_bytes']} B, not "
+                            f"{MAMBA2_DECODE_BLOCK}")
             print(f"   {r['arch']:12s} {r['shape']:12s} {r['mesh']:8s} "
                   f"{r['step']:8s} arguments "
                   f"{mem['argument_size_in_bytes'] * gb:9.3f} GB (rules' "
@@ -3998,7 +4030,7 @@ class Smoke:
                   f"{r['cost']['flops'] / 1e12:10.3f} TFLOP, collectives "
                   f"{r['collectives']['total'] * gb:.3f} GB a rank "
                   f"(traced in {r['trace_s']:.1f} s)")
-        print(f"   {len(recs)} record, no error, arguments the rules' "
+        print(f"   {len(recs)} records, no error, arguments the rules' "
               f"block, in {wall:.1f} s of wall "
               f"(counts from shapes on the host, not times; the card is "
               f"not used)")
@@ -4285,6 +4317,258 @@ class Smoke:
             del steps, args
         finally:
             dist.destroy_process_group()
+        if card:
+            torch.cuda.empty_cache()
+
+    # -- phase 49 -----------------------------------------------------------
+    def ssm_tp_rank(self):
+        """Head-parallel Mamba2 as rank 0 of a fake world (phase 48's
+        ``"fake"`` group, mesh ``(1, n)``), f32 on the card: under the
+        rules each Mamba2 mixer runs the rank's ``ssm_heads`` (kernel C on
+        H/n heads) and holds its block of the decode state.  (a)
+        Mamba2-370M at full width: a prefill with its state, greedy
+        decode steps on the rank's state block and one federated round
+        (``gather_q``, ``tp``, 4 groups of one local step, ``remat``),
+        each with the bytes its inputs ask of the caching allocator
+        against ``trace_step``'s predicted arguments and the rules' block,
+        its peak against the predicted one, its launches and its ms; (b)
+        one Jamba mixer at full width (8 heads a rank at 16); (c) kernel C
+        against its plain version at the rank's shapes of (a) and (b) and
+        at one head a rank, timed.  The fake group moves no data, so the
+        values are not held here (``tests/test_torch_tp.py`` holds them on
+        gloo worlds)."""
+        np, torch = self.np, self.torch
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.core import fed_step as FS
+        from repro_torch.kernels import ssd_scan as K
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch import specs as S
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import ssm as SM
+        from repro_torch.models import transformer as T
+        from repro_torch.sharding.rules import (Rules, param_blocks,
+                                                param_shardings, use_rules)
+        from repro_torch.utils.tree import leaves, tree_map
+        card = self.dev.type == "cuda"
+        cfg, jcfg = self.ssm_cfg, self.jamba_cfg
+        B, L, n, gen = self.ssm_tp_shape
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        self.expect(H % n == 0 and jcfg.ssm_heads % n == 0,
+                    f"the heads do not split {n} ways")
+        hr, jhr = H // n, jcfg.ssm_heads // n
+        self.expect(not dist.is_initialized(), "a process group is up")
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+        out = {}
+        try:
+            mesh = make_host_mesh(1, n, device="cpu")
+            rules = Rules(mesh)
+            gen_ = torch.Generator(device=self.dev)
+            whole = T.init_model(cfg, gen_.manual_seed(49), self.dev)
+            tok = np.random.RandomState(49).randint(0, cfg.vocab, (B, L))
+            blk = param_shardings(rules, whole)
+            whole_bytes = sum(x.numel() * x.element_size()
+                              for x in leaves(whole))
+
+            def inputs(kind):
+                # the blocks, each an allocation of its own, and the rest
+                def make():
+                    blocks = tree_map(lambda t: t.clone(),
+                                      param_blocks(whole, rules))
+                    tokens = torch.as_tensor(
+                        tok[:, :1] if kind == "decode" else tok,
+                        dtype=torch.int32, device=self.dev)
+                    if kind == "decode":
+                        with use_rules(rules):
+                            cache = T.init_decode_state(
+                                cfg, B, L + gen, torch.float32,
+                                device=self.dev)
+                        return [blocks, tokens, torch.tensor(
+                            L, dtype=torch.int32, device=self.dev), cache]
+                    args = [blocks, {"tokens": tokens}]
+                    if kind == "round":
+                        args.append(torch.zeros(4, dtype=torch.int32,
+                                                device=self.dev))
+                    return args
+                return self.built(make)
+
+            fed = FS.FedConfig(n_groups=4, local_steps=1, lr=1e-2)
+            steps = {
+                "prefill": (f"prefill {B} x {L} with the state",
+                            lambda p, b: T.prefill(p, b, cfg),
+                            inputs("prefill"), cfg.n_layers),
+                "decode": (f"decode step, batch {B}",
+                           lambda p, t, pos, c: T.decode_step(p, t, pos, cfg,
+                                                              c),
+                           inputs("decode"), 0),
+                "round": (f"fed round, 4 groups x 1 step, {B} x {L}, "
+                          f"gather_q, remat", FS.make_fed_train_step(
+                              lambda p, b: T.lm_loss(p, b, cfg,
+                                                     remat=True)[0], fed),
+                          inputs("round"), 2 * cfg.n_layers)}
+            # the whole params' and cache's shapes, for the rules' block
+            meta = tree_map(lambda t: t.to("meta"), whole)
+            whole_cache = T.init_decode_state(cfg, B, L + gen, torch.float32,
+                                              device="meta")
+            if card:
+                torch.cuda.empty_cache()
+            for key, (what, fn, (args, (held, alloc)), c_want) in \
+                    steps.items():
+                pred = D.trace_step(fn, args, mesh)
+                mem = pred["memory"]
+                if key == "decode":
+                    self.expect(tuple(args[3]["state"].shape) == (
+                        cfg.n_layers, B, hr, P, N),
+                        f"the decode state {tuple(args[3]['state'].shape)}")
+                    block = D.spec_bytes(
+                        [meta, args[1], args[2], whole_cache],
+                        [blk, None, None, S.cache_shardings(rules,
+                                                            whole_cache)],
+                        mesh)
+                else:
+                    block = D.spec_bytes([meta] + args[1:], [blk] + [
+                        S.batch_shardings(rules, args[1])] + [None] * (
+                            len(args) - 2), mesh)
+                self.expect(mem["argument_size_in_bytes"] == held == block,
+                            f"{key}: arguments {held} B on the card, "
+                            f"predicted {mem['argument_size_in_bytes']}, "
+                            f"the rules' block {block}")
+                predicted = mem["argument_size_in_bytes"] + \
+                    mem["temp_size_in_bytes"]
+                with use_rules(rules):
+                    ms, peak, counts = self.step_peak(fn, args, alloc,
+                                                      key != "round")
+                peak = predicted if peak is None else peak
+                rel = abs(predicted - peak) / peak
+                c_got, b_got = counts["ssd_scan"], counts["topk_quant"]
+                self.expect(c_got == (c_want if card else 0),
+                            f"{key}: kernel C launched {c_got} times "
+                            f"(expected {c_want})")
+                if key == "round":
+                    self.expect((b_got > 0) == card,
+                                f"kernel B's launches in the round: {b_got}")
+                self.expect(rel <= 0.15, f"{key}: the predicted peak is "
+                            f"{rel * 100:.1f}% off the measured one")
+                print(f"   {cfg.name} {what}: arguments {held} B requested "
+                      f"of the caching allocator ({alloc} B allocated) = "
+                      f"predicted = the rules' block (whole params "
+                      f"{whole_bytes} B); peak {peak / 1e9:.4f} GB, "
+                      f"predicted {predicted / 1e9:.4f} GB ({rel * 100:.2f}% "
+                      f"apart); {ms:.2f} ms; kernel C launches {c_got}, B "
+                      f"{b_got}; collectives a rank "
+                      f"{pred['collectives']['total'] / 1e9:.6f} GB "
+                      f"[{self.card()}]")
+                out[key] = dict(argument_bytes=held, allocated_bytes=alloc,
+                                rules_block=block, predicted_peak=predicted,
+                                measured_peak=peak, ms=ms, ssd_scan=c_got,
+                                topk_quant=b_got, flops=pred["cost"]["flops"],
+                                collectives=pred["collectives"]["total"])
+
+            # greedy decode from the prefill's state, on the rank's block;
+            # then the same with no rules (the mixer whole, the whole
+            # params), the twin that shows what the split costs the host
+            blocks, batch = steps["prefill"][2][0]
+
+            def greedy(params, split):
+                with torch.no_grad(), use_rules(rules if split else None):
+                    self.sync()
+                    t0 = time.perf_counter()
+                    logits, cache = T.prefill(params, batch, cfg)
+                    self.sync()
+                    t1 = time.perf_counter()
+                    t = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+                    for i in range(gen):
+                        lg, cache = T.decode_step(params, t, L + i, cfg,
+                                                  cache)
+                        t = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+                    self.sync()
+                    self.expect(bool(torch.isfinite(lg).all()),
+                                "the decode's logits are not finite")
+                return ((t1 - t0) * 1e3,
+                        (time.perf_counter() - t1) * 1e3 / gen,
+                        tuple(cache["state"].shape))
+
+            pf_ms, step_ms, state = greedy(blocks, True)
+            self.expect(state == (cfg.n_layers, B, hr, P, N),
+                        f"the prefill's state {state}")
+            pf_whole, step_whole, _ = greedy(whole, False)
+            out["greedy"] = dict(prefill_ms=pf_ms, ms_per_step=step_ms,
+                                 whole_prefill_ms=pf_whole,
+                                 whole_ms_per_step=step_whole)
+            print(f"   {gen} greedy decode steps on the rank's state block "
+                  f"{state}: prefill {pf_ms:.2f} ms, {step_ms:.2f} ms a "
+                  f"step; the mixer whole with no rules: prefill "
+                  f"{pf_whole:.2f} ms, {step_whole:.2f} ms a step "
+                  f"[{self.card()}]")
+            del steps, args, blocks, batch, whole
+
+            # (b) one Jamba mixer at full width
+            lp = SM.ssm_init(gen_.manual_seed(50), jcfg)
+            x = torch.randn((B, L, jcfg.d_model), generator=gen_,
+                            device=self.dev)
+            with torch.no_grad(), use_rules(rules):
+                y = SM.ssm_forward(lp, x, jcfg)           # warm-up
+                self.sync()
+                self.zero_counts()
+                t0 = time.perf_counter()
+                y = SM.ssm_forward(lp, x, jcfg)
+                self.sync()
+                jms = (time.perf_counter() - t0) * 1e3
+                jc = self.read_counts()["ssd_scan"]
+            self.expect(jc == (1 if card else 0),
+                        f"the Jamba mixer launched kernel C {jc} times")
+            self.expect(tuple(y.shape) == (B, L, jcfg.d_model) and bool(
+                torch.isfinite(y).all()), "the Jamba mixer's output")
+            out["jamba_mixer"] = dict(ms=jms, ssd_scan=jc)
+            print(f"   {jcfg.name} mixer, {B} x {L}, {jhr} of "
+                  f"{jcfg.ssm_heads} heads a rank: {jms:.2f} ms, kernel C "
+                  f"launches {jc} [{self.card()}]")
+            del lp, x, y
+        finally:
+            dist.destroy_process_group()
+
+        # (c) kernel C at the rank's shapes and at one head a rank
+        cells = {}
+        for name, c, h in (("mamba2", cfg, hr), ("jamba", jcfg, jhr),
+                           ("one_head", cfg, 1)):
+            Lc = min(c.ssm_chunk, L)
+            G = B * (L // Lc) * h
+            xb, b, cc, cum = self.ssd_cells(G, h, Lc, c.ssm_head_dim,
+                                            c.ssm_state, 49, torch.float32)
+            got = K.ssd_intra_chunk(xb, b, cc, cum, heads=h)
+            want = K.ssd_intra_chunk_plain(xb, b, cc, cum, heads=h)
+            err = 0.0
+            for part, g, w in zip(("y", "S", "a"), got, want):
+                where = (f"{part} at {name} (G={G}, heads={h}, L={Lc}, "
+                         f"P={c.ssm_head_dim}, N={c.ssm_state})")
+                self.expect(bool(torch.isfinite(g).all()),
+                            f"kernel C {where} not finite")
+                e = float((g - w).abs().max())
+                err = max(err, e)
+                self.expect(torch.allclose(g, w, atol=SSD_TOL, rtol=SSD_TOL),
+                            f"kernel C {where}: max abs err {e}")
+            cell = {"G": G, "heads": h, "L": Lc, "P": c.ssm_head_dim,
+                    "N": c.ssm_state, "max_abs_err": err}
+            print(f"   kernel C at {name}'s rank shape (G={G}, "
+                  f"{h} head{'s' * (h > 1)} a rank, L={Lc}, "
+                  f"P={c.ssm_head_dim}, N={c.ssm_state}): y, "
+                  f"S and a within {SSD_TOL} (atol = rtol) of the plain "
+                  f"version, max abs err {err:.3g}")
+            if card:
+                cell.update(self.time_c(G, h, Lc, c.ssm_head_dim,
+                                        c.ssm_state, 49))
+            cells[name] = cell
+        out["kernel_c"] = cells
+        if card:
+            self.kernels["ssd_scan"]["tp_rank_shapes"] = cells
+            self.kernels["ssd_scan"]["max_abs_err"] = max(
+                self.kernels["ssd_scan"].get("max_abs_err", 0.0),
+                *(c["max_abs_err"] for c in cells.values()))
+        self.ssm_tp = out
+        self.add_launches("ssd_scan", {
+            f"head-parallel Mamba2 prefill, rank 0 of {n} (49)":
+                out["prefill"]["ssd_scan"]})
         if card:
             torch.cuda.empty_cache()
 
@@ -4767,12 +5051,14 @@ def main() -> int:
         ("43. the sequence-sharded decode: Qwen3-1.7B", s.seqshard_qwen),
         ("44. the federated round with the chunked loss and remat: "
          "SmolLM-135M", s.fed_remat),
-        ("45. the dry run on this host: Qwen3-1.7B's decode_32k",
-         s.dryrun_host),
+        ("45. the dry run on this host: Qwen3-1.7B's and Mamba2-370M's "
+         "decode_32k", s.dryrun_host),
         ("46. the dry run held to the card", s.dryrun_vs_card),
         ("47. the five example twins on the card", s.example_twins),
         ("48. Megatron TP: rank 0 of a fake world of 16, Qwen3-1.7B",
          s.tp_rank),
+        ("49. head-parallel Mamba2: rank 0 of a fake world of 16",
+         s.ssm_tp_rank),
     ]
     chosen = None
     if sys.argv[1:2] == ["--phases"]:

@@ -422,12 +422,10 @@ def trace_record(cfg, shape_name: str, mesh, *, step_kind: str = "fed",
         fn, _ = build_train(cfg, rules, fed, plain=step_kind == "plain",
                             loss_chunk=loss_chunk)
         args, in_sh = build_args_train(cfg, shape_name, rules, fed)
-        held_sh = in_sh
     elif shape.kind == "prefill":
         fn = build_prefill(cfg, rules)
         batch = S.batch_specs(cfg, shape_name)
         args, in_sh = [params, batch], [None, S.batch_shardings(rules, batch)]
-        held_sh = in_sh
     else:  # decode
         fn = build_decode(cfg, shape_name, rules, seq_shard_kv=seq_shard_kv,
                           kv_quant=kv_quant)
@@ -439,13 +437,7 @@ def trace_record(cfg, shape_name: str, mesh, *, step_kind: str = "fed",
         args = [params, tok, pos, cache]
         in_sh = [None, S.batch_shardings(rules, tok), None,
                  S.cache_shardings(rules, cache, seq_shard=seq_shard_kv)]
-        # the SSM layers run whole (their weights are ``d_model``-only):
-        # a rank holds the whole of each row's SSM state, where GSPMD
-        # would split it over ``ssm_heads``
-        held_sh = in_sh[:3] + [S.cache_shardings(
-            rules.with_overrides(ssm_heads=None), cache,
-            seq_shard=seq_shard_kv)]
-    rec.update(trace_step(fn, [held] + args[1:], mesh, held_sh))
+    rec.update(trace_step(fn, [held] + args[1:], mesh, in_sh))
     # what GSPMD would hold per device under the same rules
     rec["memory"]["rules_block_size_in_bytes"] = spec_bytes(
         args, [blk] + in_sh[1:], mesh)

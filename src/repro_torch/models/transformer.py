@@ -49,9 +49,13 @@ block's inputs and recomputes it in the backward pass; unlike
 Under active sharding rules the params are the rank's blocks
 (``sharding/rules.py::param_blocks``) and each layer computes its share
 (Megatron tensor parallelism: ``models/attention.py``, ``models/layers.py``,
-the expert-parallel MoE); ``forward``, ``prefill`` and ``decode_step``
-return the whole vocabulary's logits on every rank, and a decode cache
-holds the rank's kv heads where they split (``attention.init_cache``).
+the expert-parallel MoE, the head-split Mamba2 mixer of ``models/ssm.py``);
+``forward``, ``prefill`` and ``decode_step`` return the whole
+vocabulary's logits on every rank, and a decode cache holds the rank's kv
+heads where they split (``attention.init_cache``) and the rank's
+``ssm_heads`` of the SSM state where they split (``ssm.init_ssm_cache``;
+the conv history whole), its batch axis where :func:`cache_batch_axis`
+says.
 """
 from __future__ import annotations
 

@@ -57,6 +57,8 @@ FAMILIES = {"qwen3_1_7b": "dense", "phi3_5_moe_42b": "moe",
 TINY = {"tiny_train": B.InputShape("tiny_train", 32, 4, "train"),
         "tiny_prefill": B.InputShape("tiny_prefill", 32, 2, "prefill"),
         "tiny_decode": B.InputShape("tiny_decode", 64, 2, "decode")}
+# Mamba2-370M's decode_32k at 16 x 16: the rules' block of a rank
+MAMBA2_DECODE_BLOCK = 766_939_172
 # the SSM and the hybrid: the port computes the intra-chunk step through
 # kernel C's plain version (``kernels/ssd_scan.py``), whose products the
 # reference's own jnp scan (``models/ssm.py``) forms in another
@@ -227,6 +229,11 @@ def runs():
                         "--arch", "qwen3_1_7b", "--shape", "decode_32k",
                         "--out",
                         os.path.join(tmp, "dryrun.json")]),
+        "full_mamba2": _start([sys.executable, "-m",
+                               "repro_torch.launch.dryrun", "--arch",
+                               "mamba2_370m", "--shape", "decode_32k",
+                               "--out",
+                               os.path.join(tmp, "dryrun_mamba2.json")]),
     }
     yield procs, tmp
     for p in procs.values():
@@ -549,6 +556,62 @@ def test_full_width_record(runs):
     assert mem["rules_block_size_in_bytes"] == mem["argument_size_in_bytes"]
     # the attention's and the MLP's partial sums, the wk/wv gathers
     assert r["cost"]["flops"] > 0 and r["collectives"]["all-reduce"] > 0
+
+
+def test_full_width_mamba2_record_holds_its_heads_of_the_state(runs):
+    """``python -m repro_torch.launch.dryrun --arch mamba2_370m --shape
+    decode_32k`` on a fake world of 256: a rank holds its 2 of the 32
+    ``ssm_heads`` of the f32 state (batch 8 a rank, 48 layers), so its
+    arguments are the rules' block, 766,939,172 B (the whole state a rank
+    held 377,487,360 B more); each layer's mixer all-reduces its partial
+    output and its gated norm's statistic."""
+    _finish(runs[0]["full_mamba2"])
+    with open(os.path.join(runs[1], "dryrun_mamba2.json")) as f:
+        recs = json.load(f)
+    assert len(recs) == 1 and "error" not in recs[0]
+    r, cfg = recs[0], B.get_config("mamba2_370m")
+    mem = r["memory"]
+    assert mem["argument_size_in_bytes"] == \
+        mem["rules_block_size_in_bytes"] == MAMBA2_DECODE_BLOCK
+    whole_state = cfg.n_layers * 8 * cfg.ssm_heads * cfg.ssm_head_dim * \
+        cfg.ssm_state * 4
+    assert MAMBA2_DECODE_BLOCK + whole_state * 15 // 16 == 1_144_426_532
+    assert r["collectives"]["all-reduce_count"] == 2 * cfg.n_layers
+
+
+# the records whose SSM state a rank held whole before the mixer split
+# its heads: (arch, shape, mesh) -> the rules' block in bytes
+SSM_STATE_RECORDS = {
+    ("mamba2_370m", "decode_32k", "16x16"): 766_939_172,
+    ("mamba2_370m", "long_500k", "16x16"): 740_274_184,
+    ("mamba2_370m", "decode_32k", "2x16x16"): 751_702_036,
+    ("mamba2_370m", "long_500k", "2x16x16"): 740_274_184,
+    ("jamba_v0_1_52b", "decode_32k", "16x16"): 16_071_822_372,
+    ("jamba_v0_1_52b", "long_500k", "16x16"): 11_894_978_824,
+    ("jamba_v0_1_52b", "decode_32k", "2x16x16"): 13_915_142_164,
+    ("jamba_v0_1_52b", "long_500k", "2x16x16"): 11_894_978_824,
+}
+
+
+def test_committed_records_hold_the_rules_block():
+    """Every record of the committed ``results/torch/dryrun.json`` (10
+    archs x 4 shapes x 2 meshes, no error) holds exactly the rules'
+    block, the SSM state's records included."""
+    with open(os.path.join(ROOT, "results", "torch", "dryrun.json")) as f:
+        recs = json.load(f)
+    assert len(recs) == 80
+    seen = {}
+    for r in recs:
+        assert "error" not in r, (r["arch"], r["shape"], r["mesh"])
+        mem = r["memory"]
+        assert mem["argument_size_in_bytes"] == \
+            mem["rules_block_size_in_bytes"], (r["arch"], r["shape"],
+                                               r["mesh"])
+        seen[r["arch"], r["shape"], r["mesh"]] = mem[
+            "argument_size_in_bytes"]
+    assert len(seen) == 80
+    for key, block in SSM_STATE_RECORDS.items():
+        assert seen[key] == block, key
 
 
 def test_unsharded_gather_q_round_takes_bf16_params():

@@ -204,13 +204,13 @@ def test_chip_smoke_mesh_phases_rehearse_on_cpu(capsys):
 def test_chip_smoke_dryrun_phases_rehearse_on_cpu(capsys):
     """chip_smoke.py's phases 44-48 on CPU tensors at the smoke configs:
     the recomputing federated round within the gather_q rule of the plain
-    one, the dry run in a process of its own (its one record, arguments
-    the rules' block), the dry run's predictions held to a real run (here
-    the CPU run, whose arguments must still be predicted exactly), two of
-    the example twins run in this process with their lines captured, and
-    a tensor-parallel rank of a fake world of 4 (its blocks' bytes the
-    prediction and the rules' block).  All pass: each launch check
-    expects 0 launches off the card."""
+    one, the dry run in a process a record (Qwen3's and Mamba2's
+    decode_32k, arguments the rules' block), the dry run's predictions
+    held to a real run (here the CPU run, whose arguments must still be
+    predicted exactly), two of the example twins run in this process with
+    their lines captured, and a tensor-parallel rank of a fake world of 4
+    (its blocks' bytes the prediction and the rules' block).  All pass:
+    each launch check expects 0 launches off the card."""
     sys.path.insert(0, REPO)
     try:
         import chip_smoke
@@ -228,8 +228,8 @@ def test_chip_smoke_dryrun_phases_rehearse_on_cpu(capsys):
     rr = smoke.dryrun["remat_round"]
     assert rr["loss_diff"] <= 1e-4
     recs = smoke.dryrun["records"]
-    assert [(r["arch"], r["shape"]) for r in recs] == [
-        ("qwen3_1_7b", "decode_32k")]
+    assert sorted((r["arch"], r["shape"]) for r in recs) == [
+        ("mamba2_370m", "decode_32k"), ("qwen3_1_7b", "decode_32k")]
     assert all("error" not in r for r in recs)
     for key in ("prefill", "round"):
         tp = smoke.tp[key]
@@ -239,3 +239,33 @@ def test_chip_smoke_dryrun_phases_rehearse_on_cpu(capsys):
         assert smoke.dryrun["vs_card"][key]["argument_bytes"] > 0
     assert "torch_quickstart.py --budget 2 --samples 200: 4 lines" in out
     assert "torch_compression_kernel_demo.py : 6 lines" in out
+
+
+def test_chip_smoke_ssm_tp_phase_rehearses_on_cpu(capsys):
+    """chip_smoke.py's phase 49 on CPU tensors at the smoke configs: the
+    head-parallel Mamba2 as rank 0 of a fake world of 4 (2 of 8 heads a
+    rank): the prefill's, decode's and round's arguments equal to the
+    prediction and the rules' block, the peaks the prediction, the decode
+    state the rank's block, greedy steps from the prefill's state, one
+    Jamba mixer, and kernel C's cells at the rank's shapes and one head
+    a rank (plain against plain here).  Each launch check expects 0
+    launches off the card."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    smoke = chip_smoke.Smoke("cpu", n_devices=10, n_train=1000, n_test=500,
+                             ssm_smoke=True)
+    smoke.phase("ssm_tp_rank", smoke.ssm_tp_rank)
+    assert smoke.failures == []
+    out = smoke.ssm_tp
+    for key in ("prefill", "decode", "round"):
+        assert out[key]["argument_bytes"] == out[key]["rules_block"] > 0
+        assert out[key]["collectives"] > 0
+        assert out[key]["ssd_scan"] == 0
+    assert out["decode"]["argument_bytes"] > out["prefill"]["argument_bytes"]
+    assert sorted(out["kernel_c"]) == ["jamba", "mamba2", "one_head"]
+    assert out["kernel_c"]["one_head"]["heads"] == 1
+    assert "greedy decode steps on the rank's state block" in \
+        capsys.readouterr().out

@@ -19,10 +19,12 @@ The configs cover the head-alignment cases of the rules' blocks:
 qk-norm, a tied vocabulary), ``smollm_135m`` (q cut through a head:
 the attention gathered whole), ``granite_34b`` (MQA), ``phi3_5_moe_42b``
 (attention TP beside the expert-parallel experts), ``jamba_v0_1_52b``
-(the hybrid) and ``whisper_tiny`` (cross attention; its vocabulary set to
-515, which divides neither 2 nor 4, as the full config's 51,865 does not
-divide 16).  The MoE configs take ``capacity_factor`` 8, so that no slot
-drops and the port's unsharded (dense) route computes the same function.
+(the hybrid: its attention and its head-split Mamba2 mixers),
+``whisper_tiny`` (cross attention; its vocabulary set to 515, which
+divides neither 2 nor 4, as the full config's 51,865 does not divide 16)
+and ``mamba2_370m`` (8 heads: 4 a rank at (2, 2), 2 at (1, 4)).  The
+MoE configs take ``capacity_factor`` 8, so that no slot drops and the
+port's unsharded (dense) route computes the same function.
 
 What is held:
 
@@ -33,11 +35,17 @@ What is held:
   of the reference's ``jax.grad`` (the tokens replicated over the mesh);
 * the (2, 2) federated round of ``qwen3_1_7b`` on the blocks under
   ``gather_q``, ``gather_f32`` and ``psum`` (``tp``) and ``gather_q`` and
-  ``psum`` (``dp``), gathered whole: ``gather_q`` by
-  ``tests/torch_fed_rules.py``'s rule, the f32 schedules within 1e-5, the
-  metrics within 1e-5, and the blocks cut as the rules cut them;
-* 8 greedy decode steps of ``qwen3_1_7b`` at (2, 2), the cache on the
-  rank's kv heads: tokens equal to the reference's, logits within 1e-5.
+  ``psum`` (``dp``), and of ``mamba2_370m`` under ``gather_q`` and
+  ``psum`` (``tp``: the head-split mixer), gathered whole: ``gather_q``
+  by ``tests/torch_fed_rules.py``'s rule, the f32 schedules within 1e-5,
+  the metrics within 1e-5, and the blocks cut as the rules cut them;
+* 8 greedy decode steps at (2, 2) of ``qwen3_1_7b`` (the cache on the
+  rank's kv heads) and of ``mamba2_370m`` and ``jamba_v0_1_52b`` (the
+  SSM state on the rank's heads): tokens equal to the reference's,
+  logits and each rank's block of the state within 1e-5;
+* one Mamba2 mixer at (1, 4): whole, bit for bit, where its heads do not
+  divide the axis, and reading nothing of another rank's heads where
+  they do.
 """
 import os
 import subprocess
@@ -57,11 +65,15 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 ARCHS = ["qwen3_1_7b", "smollm_135m", "granite_34b", "phi3_5_moe_42b",
-         "jamba_v0_1_52b", "whisper_tiny"]
+         "jamba_v0_1_52b", "whisper_tiny", "mamba2_370m"]
 MESHES = [(2, 2), (1, 4)]
-# (schedule, group parallelism) of the (2, 2) rounds
-ROUNDS = [("gather_q", "tp"), ("gather_f32", "tp"), ("psum", "tp"),
-          ("gather_q", "dp"), ("psum", "dp")]
+# (arch, schedule, group parallelism) of the (2, 2) rounds
+ROUNDS = [("qwen3_1_7b", "gather_q", "tp"), ("qwen3_1_7b", "gather_f32", "tp"),
+          ("qwen3_1_7b", "psum", "tp"), ("qwen3_1_7b", "gather_q", "dp"),
+          ("qwen3_1_7b", "psum", "dp"), ("mamba2_370m", "gather_q", "tp"),
+          ("mamba2_370m", "psum", "tp")]
+# the greedy decodes at (2, 2)
+DECODES = ["qwen3_1_7b", "mamba2_370m", "jamba_v0_1_52b"]
 TOL = 1e-5
 
 COMMON = r"""
@@ -70,6 +82,7 @@ import numpy as np
 ARCHS = %r
 MESHES = %r
 ROUNDS = %r
+DECODES = %r
 def config(get, arch):
     cfg = get(arch)
     if cfg.n_experts:
@@ -96,7 +109,12 @@ def batch_of(flat, arch, cfg):
 ROUND_TOKENS = np.random.RandomState(7).randint(0, 1 << 30, (4, 16))
 STALE = [0, 2]
 GEN = 8
-""" % (ARCHS, MESHES, ROUNDS)
+def ssm_state(cache):
+    # the SSM state of a decode cache: the uniform stack's, or the
+    # hybrid's under its "ssm" key; None for an attention stack
+    cache = cache.get("ssm", cache)
+    return cache.get("state")
+""" % (ARCHS, MESHES, ROUNDS, DECODES)
 
 JAX_SCRIPT = COMMON + r"""
 import sys
@@ -137,35 +155,42 @@ if part != "rounds":
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
 rules = Rules(mesh)
-cfg = config(get_smoke_config, "qwen3_1_7b")
-params = jax.tree.map(jnp.asarray, nested(flat, "qwen3_1_7b/"))
-batch = {"tokens": jnp.asarray(ROUND_TOKENS % cfg.vocab, jnp.int32)}
-for sched, gp in ROUNDS:
+for arch, sched, gp in ROUNDS:
+    cfg = config(get_smoke_config, arch)
+    params = jax.tree.map(jnp.asarray, nested(flat, arch + "/"))
+    batch = {"tokens": jnp.asarray(ROUND_TOKENS % cfg.vocab, jnp.int32)}
     fed = FedConfig(n_groups=2, local_steps=1, lr=1e-2, schedule=sched,
                     group_parallelism=gp)
     step = make_fed_train_step(lambda p, b: T.lm_loss(p, b, cfg)[0], fed)
     with use_rules(rules), mesh:
         p, m = jax.jit(step)(params, batch, jnp.asarray(STALE, jnp.int32))
-    put(f"round/{sched}-{gp}/", p)
-    out[f"loss/{sched}-{gp}"] = np.asarray(m["local_loss"])
-    out[f"dnorm/{sched}-{gp}"] = np.asarray(m["delta_norm"])
+    name = f"{arch}-{sched}-{gp}"
+    put(f"round/{name}/", p)
+    out[f"loss/{name}"] = np.asarray(m["local_loss"])
+    out[f"dnorm/{name}"] = np.asarray(m["delta_norm"])
 # greedy decode
-toks = jnp.asarray(flat["tok"] % cfg.vocab, jnp.int32)
-S = toks.shape[1]
-with use_rules(rules), mesh:
-    logits, cache = jax.jit(lambda p, b: T.prefill(p, b, cfg))(
-        params, {"tokens": toks})
-    cache = T.extend_cache(cache, S + GEN)
-    step = jax.jit(lambda p, t, pos, c: T.decode_step(p, t, pos, cfg, c))
-    t = jnp.argmax(logits[:, -1], -1)[:, None]
-    got, lg = [t], [logits[:, -1]]
-    for i in range(GEN):
-        l, cache = step(params, t, jnp.int32(S + i), cache)
-        t = jnp.argmax(l[:, -1], -1)[:, None]
-        got.append(t)
-        lg.append(l[:, -1])
-out["dec/tokens"] = np.asarray(jnp.concatenate(got, 1))
-out["dec/logits"] = np.asarray(jnp.stack(lg))
+for arch in DECODES:
+    cfg = config(get_smoke_config, arch)
+    params = jax.tree.map(jnp.asarray, nested(flat, arch + "/"))
+    toks = jnp.asarray(flat["tok"] % cfg.vocab, jnp.int32)
+    S = toks.shape[1]
+    with use_rules(rules), mesh:
+        logits, cache = jax.jit(lambda p, b: T.prefill(p, b, cfg))(
+            params, {"tokens": toks})
+        cache = T.extend_cache(cache, S + GEN)
+        step = jax.jit(lambda p, t, pos, c: T.decode_step(p, t, pos, cfg,
+                                                          c))
+        t = jnp.argmax(logits[:, -1], -1)[:, None]
+        got, lg = [t], [logits[:, -1]]
+        for i in range(GEN):
+            l, cache = step(params, t, jnp.int32(S + i), cache)
+            t = jnp.argmax(l[:, -1], -1)[:, None]
+            got.append(t)
+            lg.append(l[:, -1])
+    out[f"dec/{arch}/tokens"] = np.asarray(jnp.concatenate(got, 1))
+    out[f"dec/{arch}/logits"] = np.asarray(jnp.stack(lg))
+    if ssm_state(cache) is not None:
+        out[f"dec/{arch}/state"] = np.asarray(ssm_state(cache))
 np.savez(sys.argv[2], **out)
 """
 
@@ -178,6 +203,7 @@ from repro_torch.configs.base import get_smoke_config
 from repro_torch.core import fed_step as F
 from repro_torch.core.compression import approx_topk_threshold_rows
 from repro_torch.launch.mesh import init_world, make_host_mesh
+from repro_torch.models import ssm as SM
 from repro_torch.models import transformer as T
 from repro_torch.sharding.rules import (Rules, axis_index, block_specs,
                                         gather_params, local_block,
@@ -225,23 +251,23 @@ for shape in MESHES:
             out[f"grad/{tag}/{arch}/{i}"] = x.numpy()
             out[f"start/{tag}/{arch}/{i}"] = np.asarray(st, np.int64)
 
-# the (2, 2) rounds of qwen3
+# the (2, 2) rounds
 mesh = make_host_mesh(2, 2)
 rules = Rules(mesh)
 d, _ = axis_index(mesh, "data")
-cfg = config(get_smoke_config, "qwen3_1_7b")
-params = from_numpy(nested(flat, "qwen3_1_7b/"), "cpu")
-blocks = param_blocks(params, rules)
-batch = {"tokens": torch.from_numpy(ROUND_TOKENS % cfg.vocab)}
-loss = lambda p, b: T.lm_loss(p, b, cfg)[0]
-for sched, gp in ROUNDS:
+for arch, sched, gp in ROUNDS:
+    cfg = config(get_smoke_config, arch)
+    params = from_numpy(nested(flat, arch + "/"), "cpu")
+    blocks = param_blocks(params, rules)
+    batch = {"tokens": torch.from_numpy(ROUND_TOKENS % cfg.vocab)}
+    loss = lambda p, b: T.lm_loss(p, b, cfg)[0]
     fed = F.FedConfig(n_groups=2, local_steps=1, lr=1e-2, schedule=sched,
                       group_parallelism=gp)
     with use_rules(rules):        # this rank's group: its two batch rows
         p, met = F.make_fed_train_step(loss, fed)(
             blocks, tree_map(lambda x: x[2 * d:2 * d + 2], batch),
             torch.tensor(STALE))
-    name = f"{sched}-{gp}"
+    name = f"{arch}-{sched}-{gp}"
     out[f"shapes/{name}"] = np.asarray(
         [tuple(a.shape) == tuple(b.shape)
          for a, b in zip(leaves(p), leaves(blocks))])
@@ -271,22 +297,78 @@ for sched, gp in ROUNDS:
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         out[f"stats/{name}"] = t.numpy()
 
-# greedy decode at (2, 2): the rank's rows, its kv heads in the cache
-toks = torch.from_numpy(flat["tok"] % cfg.vocab)[2 * d:2 * d + 2]
-S = toks.shape[1]
-with torch.no_grad(), use_rules(rules):
-    logits, cache = T.prefill(blocks, {"tokens": toks}, cfg)
-    out["dec/kv_heads"] = np.asarray(cache["k"].shape[3])
-    cache = T.extend_cache(cache, S + GEN)
-    t = logits[:, -1].argmax(-1)[:, None]
-    got, lg = [t], [logits[:, -1]]
-    for i in range(GEN):
-        l, cache = T.decode_step(blocks, t, S + i, cfg, cache)
-        t = l[:, -1].argmax(-1)[:, None]
-        got.append(t)
-        lg.append(l[:, -1])
-out["dec/tokens"] = torch.cat(got, 1).numpy()
-out["dec/logits"] = torch.stack(lg).numpy()
+# greedy decode at (2, 2): the rank's rows, its kv heads or its SSM heads
+# in the cache
+for arch in DECODES:
+    cfg = config(get_smoke_config, arch)
+    blocks = param_blocks(from_numpy(nested(flat, arch + "/"), "cpu"), rules)
+    toks = torch.from_numpy(flat["tok"] % cfg.vocab)[2 * d:2 * d + 2]
+    S = toks.shape[1]
+    with torch.no_grad(), use_rules(rules):
+        logits, cache = T.prefill(blocks, {"tokens": toks}, cfg)
+        if "k" in cache:
+            out[f"dec/{arch}/kv_heads"] = np.asarray(cache["k"].shape[3])
+        cache = T.extend_cache(cache, S + GEN)
+        t = logits[:, -1].argmax(-1)[:, None]
+        got, lg = [t], [logits[:, -1]]
+        for i in range(GEN):
+            l, cache = T.decode_step(blocks, t, S + i, cfg, cache)
+            t = l[:, -1].argmax(-1)[:, None]
+            got.append(t)
+            lg.append(l[:, -1])
+    out[f"dec/{arch}/tokens"] = torch.cat(got, 1).numpy()
+    out[f"dec/{arch}/logits"] = torch.stack(lg).numpy()
+    if ssm_state(cache) is not None:
+        out[f"dec/{arch}/state"] = ssm_state(cache).numpy()
+
+# one Mamba2 mixer at (1, 4): the smoke config (8 heads, 2 a rank) and one
+# of 6 heads, which do not split 4 ways; the split one also with every
+# slice of the leaves that another rank reads set to NaN
+mesh = make_host_mesh(1, 4)
+rules = Rules(mesh)
+r, m = axis_index(mesh, "model")
+base = config(get_smoke_config, "mamba2_370m")
+for name, cfg in (("split", base),
+                  ("odd", dataclasses.replace(base, d_model=192))):
+    lp = SM.ssm_init(torch.Generator().manual_seed(5), cfg)
+    x = torch.from_numpy(np.random.RandomState(5).randn(
+        2, 12, cfg.d_model).astype(np.float32))
+    with torch.no_grad():
+        want = SM.ssm_forward(lp, x, cfg)
+        with use_rules(rules):
+            y, c = SM.ssm_forward(lp, x, cfg, return_state=True)
+            out[f"mixer/{name}/cache_heads"] = np.asarray(
+                SM.init_ssm_cache(cfg, 2)["state"].shape[1])
+            yd, cd = SM.ssm_decode(lp, x[:, :1], cfg, c)
+            if name == "split":
+                di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+                ci, hr = di // m, h // m
+                bad = {k: v.clone() for k, v in lp.items()
+                       if k != "gate_norm"}
+                bad["gate_norm"] = {"scale": lp["gate_norm"]["scale"].clone()}
+                mine = lambda t, dim, start, size: t.narrow(
+                    dim, start, size).clone()
+                for t, dim, start, size in (
+                        (bad["in_proj"], 1, 0, di),
+                        (bad["in_proj"], 1, di, di),
+                        (bad["in_proj"], 1, 2 * di + 2 * n, h),
+                        (bad["conv_w"], 1, 0, di), (bad["a_log"], 0, 0, h),
+                        (bad["ssm_d"], 0, 0, h), (bad["dt_bias"], 0, 0, h),
+                        (bad["out_proj"], 0, 0, di),
+                        (bad["gate_norm"]["scale"], 0, 0, di)):
+                    k = ci if size == di else hr
+                    keep = mine(t, dim, start + r * k, k)
+                    t.narrow(dim, start, size).fill_(float("nan"))
+                    t.narrow(dim, start + r * k, k).copy_(keep)
+                yb, cb = SM.ssm_forward(bad, x, cfg, return_state=True)
+                ydb, cdb = SM.ssm_decode(bad, x[:, :1], cfg, c)
+                out["mixer/poisoned_equal"] = np.asarray(
+                    [torch.equal(yb, y), torch.equal(cb["state"], c["state"]),
+                     torch.equal(ydb, yd),
+                     torch.equal(cdb["state"], cd["state"])])
+    out[f"mixer/{name}/exact"] = np.asarray(torch.equal(y, want))
+    out[f"mixer/{name}/err"] = np.asarray(float((y - want).abs().max()))
+    out[f"mixer/{name}/state_heads"] = np.asarray(c["state"].shape[1])
 np.savez(os.path.join(sys.argv[2], f"rank{rank}.npz"), **out)
 dist.destroy_process_group()
 """
@@ -401,14 +483,19 @@ def test_block_gradients_match_jax(runs, mesh, arch):
     assert split > 0
 
 
-@pytest.mark.parametrize("case", ROUNDS, ids=["-".join(c) for c in ROUNDS])
+ROUND_IDS = ["-".join(c[1:]) if c[0] == "qwen3_1_7b" else "-".join(c)
+             for c in ROUNDS]
+
+
+@pytest.mark.parametrize("case", ROUNDS, ids=ROUND_IDS)
 def test_tp_round_matches_jax(runs, case):
     flat, ref, ranks = runs
     name = "-".join(case)
-    keys = _order(flat, "qwen3_1_7b/")
-    want = [ref[f"round/{name}/" + k[len("qwen3_1_7b/"):]] for k in keys]
+    arch = case[0]
+    keys = _order(flat, arch + "/")
+    want = [ref[f"round/{name}/" + k[len(arch) + 1:]] for k in keys]
     got = [ranks[0][f"round/{name}/{i}"] for i in range(len(want))]
-    if case[0] == "gather_q":
+    if case[1] == "gather_q":
         assert_gather_q_close(got, want, ranks[0][f"stats/{name}"], 8)
     else:
         for g, w in zip(got, want):
@@ -422,12 +509,65 @@ def test_tp_round_matches_jax(runs, case):
             np.testing.assert_array_equal(r[f"round/{name}/{i}"], got[i])
 
 
+def _decode_close(ref, ranks, arch):
+    """Each rank's greedy tokens equal to its rows of the reference's,
+    its logits within 1e-5."""
+    for r, got in enumerate(ranks):
+        d = r // 2
+        np.testing.assert_array_equal(
+            got[f"dec/{arch}/tokens"],
+            ref[f"dec/{arch}/tokens"][2 * d:2 * d + 2])
+        _close(got[f"dec/{arch}/logits"],
+               ref[f"dec/{arch}/logits"][:, 2 * d:2 * d + 2])
+
+
 def test_greedy_decode_on_local_kv_heads_matches_jax(runs):
     _, ref, ranks = runs
     cfg = get_smoke_config("qwen3_1_7b")
+    _decode_close(ref, ranks, "qwen3_1_7b")
+    for got in ranks:
+        assert int(got["dec/qwen3_1_7b/kv_heads"]) == cfg.n_kv_heads // 2
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "jamba_v0_1_52b"])
+def test_greedy_decode_on_local_ssm_heads_matches_jax(runs, arch):
+    """8 greedy steps at (2, 2), each rank's SSM state its block (its
+    rows, H/2 heads): tokens equal to the reference's, logits within 1e-5
+    and each rank's final state within 1e-5 of its rows and heads of the
+    reference's."""
+    _, ref, ranks = runs
+    H = get_smoke_config(arch).ssm_heads
+    _decode_close(ref, ranks, arch)
+    want = ref[f"dec/{arch}/state"]             # (..., B, H, P, N)
     for r, got in enumerate(ranks):
-        d = r // 2
-        assert int(got["dec/kv_heads"]) == cfg.n_kv_heads // 2
-        np.testing.assert_array_equal(got["dec/tokens"],
-                                      ref["dec/tokens"][2 * d:2 * d + 2])
-        _close(got["dec/logits"], ref["dec/logits"][:, 2 * d:2 * d + 2])
+        d, m = divmod(r, 2)
+        st = got[f"dec/{arch}/state"]
+        assert st.shape[-3] == H // 2
+        _close(st, want[..., 2 * d:2 * d + 2,
+                        m * H // 2:(m + 1) * H // 2, :, :])
+
+
+def test_mixer_runs_whole_where_heads_do_not_divide(runs):
+    """At (1, 4) a Mamba2 mixer of 6 heads runs whole under the rules,
+    bit for bit as with none (its state and cache hold all 6 heads); the
+    smoke config's 8 heads run 2 a rank, within 1e-5 of the whole."""
+    _, _, ranks = runs
+    for got in ranks:
+        assert got["mixer/odd/exact"]
+        assert int(got["mixer/odd/state_heads"]) == 6
+        assert int(got["mixer/odd/cache_heads"]) == 6
+        assert int(got["mixer/split/state_heads"]) == 2
+        assert int(got["mixer/split/cache_heads"]) == 2
+        assert float(got["mixer/split/err"]) <= TOL
+
+
+def test_rank_reads_only_its_ssm_heads(runs):
+    """At (1, 4), with every slice of the mixer's leaves that belongs to
+    another rank's heads set to NaN (their z, x and dt columns of
+    ``in_proj``, x channels of ``conv_w``, entries of ``a_log``,
+    ``ssm_d``, ``dt_bias`` and ``gate_norm``, rows of ``out_proj``), a
+    rank's forward output and state and its decode output and state are
+    bit for bit those of the clean leaves."""
+    _, _, ranks = runs
+    for got in ranks:
+        assert got["mixer/poisoned_equal"].all()
