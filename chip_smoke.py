@@ -6,7 +6,8 @@
 Phases, in order; the script exits nonzero if any of them fails:
 
 1. Device and build: the card's name and power limit, the build of the
-   CUDA kernels from ``src/repro_torch/kernels/csrc``, TF32 off.
+   CUDA kernels from ``src/repro_torch/kernels/csrc`` (ptxas's registers
+   and spills of each kernel, by its mangled name), TF32 off.
 2. Kernel A (``fused_pack``) against its plain PyTorch version on the card,
    over the Alg. 5 candidate grid, with four leaves large enough to be
    spread over a cluster (one ragged, one with ties at T in every slice,
@@ -54,6 +55,11 @@ Phases, in order; the script exits nonzero if any of them fails:
    bf16, and a
    ragged list with a row of 140,001 tied magnitudes; 2 launches per
    application for the CNN, one per cluster size for the ragged list.
+   Then the wide route (rows of ``WIDE_MIN`` values or more): rows just
+   below, at and past the boundary and a mixed list of both routes (rows
+   of ties, a ragged 3,000,001-value row, 8-CTA rows), f32 and bf16,
+   keep-all, iters 0/5/12/16, the wire; and the CNN forced onto the wide
+   route at a tile of 999 values; one launch counted per plan entry.
 12. The cohort main path at full width: TEASQ on the paper's CNN with 100
    devices, 60,000/10,000 samples, ``cohort_size=8``, ``codec="packed"``
    and the schedule (p_s0_idx 4, p_q0_idx 3, step 2) through
@@ -67,7 +73,8 @@ Phases, in order; the script exits nonzero if any of them fails:
    on the card at the full fleet for 3 rounds, then card against CPU at 8
    devices from the same weights.
 15. Kernel B's channel form timed at the up-channel shape of a full cohort
-   of 8 against its plain version and its byte bound.
+   of 8 against its plain version and its byte bound (on the card: the
+   sum of every ``topk_quant`` kernel the profiler recorded, a call).
 16. The batched scheduler with serial handlers against the heap, on the
    card: the paper's fleet (100 devices, 60,000/10,000 samples), TEASQ on
    the cohort trainer at ``cohort_size=8``, 3 rounds each; the time, round
@@ -190,8 +197,14 @@ Phases, in order; the script exits nonzero if any of them fails:
 35. Kernel B's channel form at the trainer's rows against its plain
    version: SmolLM-135M's leaves as (4, n) delta rows (seeded numpy; rows
    up to 28,311,552), Mamba2-370M's embedding as (4, 51,486,720), and one
-   row of 80,000,000 values (past 2^24 / p_s): equal values; launches, ms
-   on the card and the plain version's against the byte bound.
+   row of 80,000,000 values (past 2^24 / p_s), and SmolLM's rows with the
+   wire: equal values (and levels and scales); the long rows on the wide
+   route; launches, ms by events and on the card (each kernel's, summed
+   a call) and the plain version's against the byte bound; then both
+   routes timed on 1 and 4 rows of 2^17 to 2^27 values, the wide one at
+   tiles of 8,192 to 131,072 and at the plan's (``WIDE_MIN`` and
+   ``wide_tile_len`` come from it), every output equal to the cluster
+   route's.
 36. The federated round at full width: SmolLM-135M (30 layers, d_model
    576, vocab 49,152, seeded weights) through ``launch/train.py``'s
    ``main`` (``--mode fed``, 4 groups, 2 local steps, batch 16 x 128, 5
@@ -339,9 +352,11 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -443,10 +458,21 @@ def kernel_device_ms(fn, name: str, reps: int = 20,
                      attempts: int = 3) -> float:
     """Milliseconds on the card per launch of the kernels whose name holds
     ``name``, from torch.profiler over ``reps`` calls of ``fn`` (the
-    device's own kernel durations, whatever the host's pace).  A profiled
-    window in which the profiler recorded no such kernel is taken again,
-    up to ``attempts`` windows in all (one window of a run once came back
-    without any device activity)."""
+    device's own kernel durations, whatever the host's pace)."""
+    ms, launches = device_ms_per_call(fn, name, reps, attempts)
+    return ms / launches
+
+
+def device_ms_per_call(fn, name: str, reps: int = 20,
+                       attempts: int = 3, by_kernel=None):
+    """(milliseconds on the card per call of ``fn``, CUDA launches per
+    call) summed over every kernel whose name holds ``name``, from
+    torch.profiler over ``reps`` calls: a call that makes several
+    launches (kernel B's wide route makes 3 or more an entry) counts all
+    of them; ``by_kernel`` (a dict) receives each such kernel's ms per
+    call.  A window in which the profiler recorded no such kernel is
+    taken again, up to ``attempts`` windows, and the names it did record
+    are printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -457,17 +483,30 @@ def kernel_device_ms(fn, name: str, reps: int = 20,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total, count = 0.0, 0
+        total, count, seen = 0.0, 0, {}
         for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and \
-                    name in e.key:
-                total += e.self_device_time_total / 1e3
-                count += e.count
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen[e.key] = e.count
+                if name in e.key:
+                    total += e.self_device_time_total / 1e3
+                    count += e.count
+                    if by_kernel is not None:
+                        by_kernel[e.key] = e.self_device_time_total / 1e3 \
+                            / reps
         if count:
-            return total / count
+            return total / reps, count / reps
         print(f"   (the profiler recorded no kernel named {name!r} in a "
-              f"window of {reps} calls)")
+              f"window of {reps} calls; device events seen: "
+              f"{dict(list(seen.items())[:6]) or 'none'})")
     raise RuntimeError(f"the profiler saw no kernel named {name!r}")
+
+
+def short_kernel(key: str) -> str:
+    """A kernel's name and template arguments out of the profiler's
+    demangled signature."""
+    found = re.search(r"(topk_quant\w*|fused_pack\w*|ssd_scan\w*)(<[^>]*>)?",
+                      key)
+    return "".join(found.groups("")) if found else key
 
 
 class Smoke:
@@ -625,9 +664,14 @@ class Smoke:
         build.library()
         print(f"   kernels built (nvcc, sm_90a) and loaded in "
               f"{time.perf_counter() - t0:.2f} s")
+        fn = "?"
         for line in build.build_log().splitlines():
-            if "registers" in line or "spill" in line:
-                print("   ptxas:", line.strip())
+            named = re.search(r"(?:Compiling entry function|Function "
+                              r"properties for) '?(\w+)", line)
+            if named:
+                fn = named.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"   ptxas: {fn}: {line.strip()}")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         print(f"   cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -1386,9 +1430,12 @@ class Smoke:
         card = self.dev.type == "cuda"
         checked, worst = 0, 0.0
 
-        def check(xs, p_s, p_q, iters, launches, where):
+        def check(xs, p_s, p_q, iters, launches, where, route=None):
+            # route: the channel's tile and boundary, forced on the card
+            run = threshold_channel_leaves if not (route and card) else \
+                functools.partial(B.threshold_channel_cuda, **route)
             before = B.LAUNCHES
-            got = threshold_channel_leaves(xs, p_s, p_q, iters)
+            got = run(xs, p_s, p_q, iters)
             n = B.LAUNCHES - before
             want = launches if card and (p_s, p_q) != (1.0, 32) else 0
             self.expect(n == want, f"{n} launches, not {want}, {where}")
@@ -1401,7 +1448,7 @@ class Smoke:
                             f"channel form leaf {i} != plain {where}")
             if p_q <= 8:    # the wire: levels and scales beside the values
                 before = B.LAUNCHES
-                gw = threshold_channel_leaves(xs, p_s, p_q, iters, wire=True)
+                gw = run(xs, p_s, p_q, iters, wire=True)
                 n = B.LAUNCHES - before
                 want = launches if card else 0
                 self.expect(n == want, f"{n} wire launches, not {want}, "
@@ -1453,16 +1500,75 @@ class Smoke:
                 ragged, p_s, p_q, iters, len(plan),
                 f"(ragged, p_s={p_s}, p_q={p_q}, iters={iters})"))
             checked += 1
-        print(f"   {checked} cases (Set_s x Set_q x iters 12/6 on the CNN's "
-              f"8 leaves over C = {', '.join(map(str, self.channel_cs))}; "
+        # the wide route (rows of at least B.WIDE_MIN values): rows just
+        # below, at and past the boundary; a list of both routes with rows
+        # of ties (whose store cannot be folded into the last pass: too
+        # many values near the threshold) and of normal values (whose store
+        # is folded at iters > 8), a ragged row (odd row starts, a short
+        # last tile) and 8-CTA rows; f32 and bf16, keep-all, iters 0, 5, 12
+        # and 16 (the wire at p_q <= 8); then every CNN row forced onto the
+        # wide route at a tile of 999 values (unaligned tiles, rows shorter
+        # than a tile).  A rehearsal takes shorter rows, f32, the first
+        # point.
+        gen = torch.Generator().manual_seed(11)
+        cut = 1 if card else 100
+
+        def normal(shape, ties=False):
+            x = torch.randn(shape, generator=gen) * 0.05
+            if ties:                     # a seventh of the values at 1/16
+                x.view(-1)[::7] = 0.0625
+            return x.to(self.dev)
+        edge = B.WIDE_MIN
+        lists = {
+            "boundary": [normal((2, edge - 1)), normal((2, edge), True),
+                         normal((1, edge + 1))],
+            "mixed": [normal((3, 40)), torch.from_numpy(rng.choice(
+                np.float32([0.5, -0.5, 0.25, 0.0]), (2, 1_000_003 // cut))
+            ).to(self.dev), normal((2, 5000)), normal((4, 2, 5)),
+                normal((1, 3_000_001 // cut)), normal((8, 200_704), True),
+                normal((3, 700_001 // cut), True)]}
+        points = ((0.25, 8, 12), (0.05, 4, 0), (0.1, 16, 5), (1.0, 8, 12),
+                  (0.5, 32, 16), (0.01, 2, 16))
+        wide_checked = 0
+        for what, xs in lists.items():
+            for dtype in (torch.float32, torch.bfloat16)[:2 if card else 1]:
+                ys = [x.to(dtype) for x in xs]
+                plan = B.channel_plan([y[0].numel() for y in ys],
+                                      [y.shape[0] for y in ys])
+                for p_s, p_q, iters in points[:len(points) if card else 1]:
+                    worst = max(worst, check(
+                        ys, p_s, p_q, iters, len(plan),
+                        f"({what}, {dtype}, p_s={p_s}, p_q={p_q}, "
+                        f"iters={iters})"))
+                    wide_checked += 1
+        cnn = self.cnn_stack(8, 42)
+        forced = dict(tile=999, wide_min=1)
+        n_forced = len(B.channel_plan([x[0].numel() for x in cnn],
+                                      [8] * len(cnn), **forced))
+        for dtype in (torch.float32, torch.bfloat16)[:2 if card else 1]:
+            for p_s, p_q, iters in ((0.25, 8, 12), (0.05, 4, 6),
+                                    (1.0, 16, 12))[:3 if card else 1]:
+                worst = max(worst, check(
+                    [x.to(dtype) for x in cnn], p_s, p_q, iters, n_forced,
+                    f"(CNN on the wide route, tile 999, {dtype}, "
+                    f"p_s={p_s}, p_q={p_q})", route=forced))
+                wide_checked += 1
+        print(f"   {checked + wide_checked} cases (Set_s x Set_q x iters "
+              f"12/6 on the CNN's 8 leaves over C = "
+              f"{', '.join(map(str, self.channel_cs))}; "
               f"bf16 at C = 8; a ragged list of {len(plan)} launches with a "
-              f"140,001-value row of ties): outputs bit-identical to the "
-              f"plain version (tolerance: exact); 2 launches per "
-              f"application for the CNN; in the {wire_checked[0]} cases at "
-              f"p_q <= 8 also with the wire (int8 levels and f32 scales "
-              f"per row, the federated round's compress_delta), "
-              f"bit-identical to the plain version's")
+              f"140,001-value row of ties; {wide_checked} on the wide "
+              f"route, rows from {edge - 1} to {3_000_001 // cut} values "
+              f"on both sides of the boundary {edge}, f32 and bf16, "
+              f"iters 0/5/12/16, keep-all, and the CNN forced onto it at "
+              f"a tile of 999): outputs bit-identical to the plain version "
+              f"(tolerance: exact); 2 launches per application for the "
+              f"CNN, one per plan entry elsewhere; in the "
+              f"{wire_checked[0]} cases at p_q <= 8 also with the wire "
+              f"(int8 levels and f32 scales per row, the federated round's "
+              f"compress_delta), bit-identical to the plain version's")
         self.kernels["topk_quant"].update(channel_checked_cases=checked,
+                                          channel_wide_cases=wide_checked,
                                           channel_max_abs_err=worst,
                                           channel_wire_cases=wire_checked[0])
 
@@ -1624,7 +1730,7 @@ class Smoke:
         run()
         per_call = B.LAUNCHES - before
         ms = time_cuda(run)
-        dev_ms = kernel_device_ms(run, "topk_quant") * per_call
+        dev_ms, cuda_launches = device_ms_per_call(run, "topk_quant")
         plain = time_cuda(lambda: B.threshold_channel_plain(xs, 0.25, 8, 12),
                           iters=10)
         # each value read once and its dequantized value written once; 12
@@ -1639,11 +1745,14 @@ class Smoke:
             channel_bound_ms=bound,
             channel_bound_by="bytes" if t_bytes >= t_ops else "operations",
             channel_bytes=nbytes, channel_operations=nops,
-            channel_launches_per_call=per_call)
+            channel_launches_per_call=per_call,
+            channel_cuda_launches_per_call=cuda_launches)
         print(f"   threshold channel, up shape of a full cohort (8 x "
               f"{n // 8} values, (0.25, 8, 12), {per_call} launches): "
               f"{ms * 1e3:.2f} us per application (events over 50), "
-              f"{dev_ms * 1e3:.2f} us on the card (profiler), plain "
+              f"{dev_ms * 1e3:.2f} us on the card (profiler, the sum of "
+              f"the {cuda_launches:g} CUDA launches a call it recorded, of "
+              f"{self.channel_cuda_launches(xs)}), plain "
               f"{plain * 1e3:.1f} us; bound {bound * 1e3:.3f} us ({nbytes} "
               f"bytes, {nops} ops) [{self.card()}]")
         print("   No single PyTorch call computes this function: "
@@ -3075,6 +3184,16 @@ class Smoke:
             return seen[0] if seen else None
         return restore
 
+    def channel_cuda_launches(self, xs, iters=12):
+        """CUDA launches of kernel B's channel form on the leaves ``xs``:
+        one per cluster entry of its plan, 2 + one per 12 bisection steps
+        per wide entry (the workspace's zeroing is no kernel)."""
+        from repro_torch.kernels import topk_quant as B
+        plan = B.channel_plan([x[0].numel() for x in xs],
+                              [x.shape[0] for x in xs])
+        return sum(1 if e.slices != B.WIDE else 2 + -(-iters // B.WIDE_BITS)
+                   for e in plan)
+
     def channel_plan_launches(self, params, groups):
         """Kernel B's launches per application of the round's compressor
         to ``params``'s leaves as (groups, n) rows: one per cluster size
@@ -3141,60 +3260,139 @@ class Smoke:
              f"{self.ssm_cfg.vocab * self.ssm_cfg.d_model})",
              [rows((4, self.ssm_cfg.vocab * self.ssm_cfg.d_model))]),
             (f"one row of {self.long_row}", [rows((1, self.long_row))])]
+        cases.append((f"{cases[0][0]}, with the wire", smollm))
         out = {}
         for name, xs in cases:
+            wire = name.endswith("with the wire")
+            call = functools.partial(threshold_channel_leaves, xs, 0.25, 8,
+                                     12, wire=wire)
             before = B.LAUNCHES
-            got = threshold_channel_leaves(xs, 0.25, 8, 12)
+            got = call()
             self.sync()
             per_call = B.LAUNCHES - before
-            want = B.threshold_channel_plain(xs, 0.25, 8, 12)
+            want = B.threshold_channel_plain(xs, 0.25, 8, 12, wire=wire)
+            if wire:
+                self.expect(all(torch.equal(a, b) for a, b in zip(
+                    got[1], want[1])) and all(torch.equal(
+                        a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(got[2], want[2])),
+                    f"{name}: the wire's levels or scales differ from the "
+                    f"plain version's")
+                got, want = got[0], want[0]
             for g, p in zip(got, want):
                 self.expect(torch.equal(g, p), f"{name}: kernel B's channel "
                             f"form differs from its plain version")
             self.expect((per_call > 0) == card, f"{name}: {per_call} "
                         f"launches")
+            plan = B.channel_plan([x[0].numel() for x in xs],
+                                  [x.shape[0] for x in xs])
             longest = max(x.shape[1] for x in xs)
+            wide = [e for e in plan if e.slices == B.WIDE]
+            self.expect(per_call == (len(plan) if card else 0),
+                        f"{name}: {per_call} launches, not one per entry "
+                        f"of its plan")
+            self.expect(sorted(xs[i].shape[1] for e in wide for i in e.part)
+                        == sorted(x.shape[1] for x in xs
+                                  if x.shape[1] >= B.WIDE_MIN),
+                        f"{name}: its long rows are not all on the wide "
+                        f"route")
+            route = (", ".join(f"{e.tiles} tiles of {e.tile}" for e in wide)
+                     + " on the wide route" if wide else
+                     "cluster route only")
             kept = sum(int((g != 0).sum()) for g in got)
             n = sum(x.numel() for x in xs)
             line = (f"   {name}: equal to the plain version ({n} values, "
                     f"rows up to {longest}, {kept / n:.4f} kept; "
-                    f"{per_call} launches)")
+                    f"{per_call} launches; {route})")
             entry = {"values": n, "longest_row": longest,
-                     "launches_per_call": per_call}
+                     "launches_per_call": per_call,
+                     "wide_tiles": sum(e.tiles for e in wide)}
             if card:
-                ms = time_cuda(lambda: threshold_channel_leaves(
-                    xs, 0.25, 8, 12), iters=10, warmup=1)
+                ms = time_cuda(call, iters=10, warmup=1)
+                split = {}
                 try:
-                    dev_ms = kernel_device_ms(
-                        lambda: threshold_channel_leaves(xs, 0.25, 8, 12),
-                        "topk_quant", reps=5) * per_call
+                    dev_ms, cuda_launches = device_ms_per_call(
+                        call, "topk_quant", reps=5, by_kernel=split)
                 except RuntimeError:      # a timing beside the check
-                    dev_ms = None
+                    dev_ms, cuda_launches = None, None
                 plain = time_cuda(lambda: B.threshold_channel_plain(
-                    xs, 0.25, 8, 12), iters=3, warmup=1)
-                # each value read once, its dequantized value written once;
-                # 12 bisection steps and 5 operations of quantization each
-                t_bytes = 8 * n / PEAK_BYTES_PER_S * 1e3
+                    xs, 0.25, 8, 12, wire=wire), iters=3, warmup=1)
+                # each value read once, its dequantized value written once
+                # (the wire adds its level and a scale a row); 12 bisection
+                # steps and 5 operations of quantization each
+                nbytes = 8 * n + (n + 4 * sum(x.shape[0] for x in xs)
+                                  if wire else 0)
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
                 t_ops = 17 * n / PEAK_F32_OPS_PER_S * 1e3
                 bound = max(t_bytes, t_ops)
-                entry.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                             bound_ms=bound, bound_by="bytes"
-                             if t_bytes >= t_ops else "operations")
+                entry.update(ms=ms, device_ms=dev_ms,
+                             cuda_launches_per_call=cuda_launches,
+                             plain_ms=plain, bound_ms=bound,
+                             bound_by="bytes" if t_bytes >= t_ops
+                             else "operations")
                 on_card = ("not measured (the profiler recorded no "
                            "kernel)" if dev_ms is None else
-                           f"{dev_ms:.3f} ms")
+                           f"{dev_ms:.3f} ms ({cuda_launches:g} CUDA "
+                           f"launches a call recorded, of "
+                           f"{self.channel_cuda_launches(xs)})")
                 line += (f": {ms:.3f} ms per call (events over 10), "
                          f"{on_card} on the card (profiler), plain "
                          f"{plain:.3f} ms; bound {bound:.4f} ms "
-                         f"({8 * n} bytes) [{self.card()}]")
+                         f"({nbytes} bytes) [{self.card()}]")
+                split = {short_kernel(k): v for k, v in split.items()}
+                entry["device_ms_by_kernel"] = split
+                line += "\n     by kernel, ms a call: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in split.items())
             print(line)
             out[name] = entry
             del xs, got, want
+        if card:
+            self.route_sweep()
         print("   The kept fraction is counted in integers and converted "
               "once, in the kernel and in its plain version alike; the JAX "
               "package's mean sums f32 ones, inexact past 2^24 values, so "
               "at rows over 2^24 / p_s values the two packages may differ.")
         self.kernels["topk_quant"]["trainer_rows"] = out
+
+    def route_sweep(self):
+        """Kernel B's channel form at (0.25, 8, 12) on 1 and 4 rows of 2^17
+        to 2^27 values (seeded normal), by CUDA events, on the cluster
+        route and on the wide route at tiles of 8,192 to 131,072 values and
+        at the plan's own (``wide_tile_len``): where the wide route starts
+        to win (WIDE_MIN) and its best tile.  Every route's output must
+        equal the cluster route's."""
+        torch = self.torch
+        from repro_torch.kernels import topk_quant as B
+        gen = torch.Generator(device=self.dev).manual_seed(36)
+        routes = [("cluster", dict(wide_min=2 ** 31 - 1))] + [
+            (f"wide {t}", dict(tile=t, wide_min=1))
+            for t in (8192, 16384, 32768, 65536, 131072)] + [
+            ("wide plan's", dict(wide_min=1))]
+        sweep = {}
+        print(f"   the routes, ms per call (events) [{self.card()}]:")
+        for rows in (1, 4):
+            for k in (17, 18, 19, 20, 21, 23, 25, 27):
+                x = torch.randn((rows, 2 ** k), generator=gen,
+                                device=self.dev) * 1e-3
+                ref, ms = None, {}
+                for name, kw in routes:
+                    call = functools.partial(B.threshold_channel_cuda, [x],
+                                             0.25, 8, 12, **kw)
+                    got = call()[0]
+                    if ref is None:
+                        ref = got
+                    self.expect(torch.equal(got, ref), f"{name} differs "
+                                f"from the cluster route at {rows} x 2^{k}")
+                    ms[name] = time_cuda(call, iters=10 if k < 25 else 4,
+                                         warmup=1)
+                best = min(ms, key=ms.get)
+                print(f"     {rows} x 2^{k}: " + ", ".join(
+                    f"{r} {t:.4f}" for r, t in ms.items()) +
+                    f" (bound {8 * x.numel() / PEAK_BYTES_PER_S * 1e3:.4f};"
+                    f" fastest: {best})")
+                sweep[f"{rows}x2^{k}"] = ms
+                del x, ref, got
+        self.kernels["topk_quant"]["channel_route_sweep"] = sweep
 
     # -- phase 36 -----------------------------------------------------------
     def fed_smollm(self):

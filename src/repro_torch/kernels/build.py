@@ -132,10 +132,10 @@ def library() -> ctypes.CDLL:
     lib.topk_quant_launch.argtypes = [i32, i64p, i64p, i64p, i32, i32, i32,
                                       i32, i32, i32, i32, vp, vp, vp]
     lib.topk_quant_launch.restype = i32
-    lib.topk_channel_launch.argtypes = [i32, i64p, i64p, i64p, i64p, i64p,
-                                        i64p, i32, i32, i32, i32, i32, i32,
-                                        i64p, vp, vp]
-    lib.topk_channel_launch.restype = i32
+    i64 = ctypes.c_longlong
+    lib.topk_channel_run.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                                     i32, i32, vp]
+    lib.topk_channel_run.restype = i32
     lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                     i32, vp, vp, vp, vp]
     lib.ssd_scan_launch.restype = i32

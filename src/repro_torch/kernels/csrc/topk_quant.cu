@@ -72,12 +72,11 @@
 // intrinsics, rintf rounds half to even, and the build passes -fmad=false
 // without --use_fast_math.
 //
-// The channel form (topk_channel_launch; the same kernel, kChannel = true)
-// is the cohort trainer's threshold channel: src/repro/core/compression.py
-// ::sparsify_quantize_threshold (:98) under jax.vmap over a leaf's leading
-// device axis, as jax.jit compiles it.  Each row is one device's leaf, of
-// its own length with no pad; the leaf table adds each leaf's row length,
-// its need and its output.  Differences from the block form:
+// The channel form (topk_channel_run) is the cohort trainer's threshold
+// channel: src/repro/core/compression.py::sparsify_quantize_threshold
+// (:102) under jax.vmap over a leaf's leading device axis, as jax.jit
+// compiles it.  Each row is one device's leaf, of its own length with no
+// pad.  Differences from the block form:
 // * XLA multiplies by the f32 reciprocal of a constant divisor, so the kept
 //   fraction is count * f32(1/len) (the wrapper's need follows that rule,
 //   kernels/topk_quant.py::channel_need) and the value written is
@@ -85,14 +84,27 @@
 //   dropped; levels stay f32 in registers, so bits 2..16 are taken, and
 //   bits = 32 writes x where kept;
 // * keep_all (p_s >= 1) skips the search and keeps every value;
-// * one launch per cluster size: the wrapper groups leaves by the CTAs a
-//   row takes, so the CNN's 8 leaves take 2 launches (fc1's rows on 8-CTA
-//   clusters, the other seven one CTA a row).
 // * on request it also writes the wire of the federated round's mesh
 //   branch (src/repro/core/fed_step.py::compress_delta, :81): each value's
 //   int8 level (0 where dropped) into the leaf's level buffer and each
-//   row's f32 scale, indexed by the row's number in the launch; bits 2..8.
-
+//   row's f32 scale; bits 2..8;
+// * one C call runs the wrapper's whole plan (kernels/topk_quant.py::
+//   channel_plan), a table of entries, each of up to kMaxLeaves leaves,
+//   over two routes:
+//   - the cluster route, rows of fewer than WIDE_MIN = 376,833 values (an
+//     8-CTA cluster's slices fit shared memory up to 376,832): this kernel
+//     (kChannel = true), one launch per cluster size, so the CNN's 8
+//     leaves take 2 launches (fc1's rows on 8-CTA clusters, the other
+//     seven one CTA a row);
+//   - the wide route, longer rows: one CTA per tile over the whole card,
+//     the rows' state in a device workspace, 12 bisection steps a pass
+//     (below, "The channel form's wide route").  One cluster a row had left
+//     a long row on 8 of the card's 132 SMs, its slices read from device
+//     memory again on every pass: one row of 80 M values took 24 ms, twice
+//     its plain version (PERF.md, kernel B).
+//   The boundary is measured (chip_smoke.py phase 35's sweep): at 2^18
+//   values a row the cluster route is as fast or faster (4 rows: 0.047
+//   against 0.062 ms), at 2^19 the wide route is 2-3x faster.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -613,6 +625,478 @@ cudaError_t launch(const Leaves& lv, int rows, int is_bf16, int block,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The channel form's wide route: a row of at least WIDE_MIN values
+// (kernels/topk_quant.py) is cut into tiles of `tile_len` values, one CTA
+// each, in one grid over every row of the launch, so that a long row uses
+// the whole card and not one cluster (the plan's tile, wide_tile_len: the
+// power of two at or above a 256th of the entry's values, 8,192 to
+// 131,072, about one CTA for each of the card's 264 resident slots; a
+// larger tile merges fewer histograms, a smaller one fills the card).
+// Every pass over a long row reads it from device memory, so a pass takes
+// kWideBits = 12 bisection steps (the 4,095 midpoints of a 12-level tree)
+// where the cluster route takes 8: at the channel's 12 steps a row is read
+// three times (its max, one histogram pass, the store) and written once,
+// 16 bytes a f32 value against the bound's 8.  A row's state lives in a
+// device workspace, `stride` u32 a row: its max |x| bits, lo and hi as f32
+// bits, then per pass kWideBins bins and a ticket.  In stream order, the
+// workspace zeroed first:
+//   max:   each CTA's max |x| pattern, atomicMax into the row's (exact:
+//          non-negative floats order as their u32 patterns);
+//   pass:  ceil(iters / 12) times, each CTA builds the pass's midpoints
+//          from the row's (lo, hi) with the sequential loop's f32
+//          recursion, bins its tile by the number of midpoints <= |x|
+//          (bin_batch), and adds its histogram into the row's bins; the
+//          last CTA of the row to take a ticket finds K from the row's
+//          bins (integer counts: the order of the sums does not matter)
+//          and writes (mid[K], mid[K + 1]) as the row's (lo, hi);
+//   store: the dequantized values (and the wire) from the row's final
+//          (lo, hi) and max, as the cluster route writes them.
+// Each reads its tile with 16-byte loads (scalar loads before the first
+// 16-byte boundary and after the last), 16 values a thread, the pass
+// loading the next 16 before binning these.  kept_midpoints repeats the
+// cluster kernel's walk of the decisions, which stays as it is (the block
+// form shares that kernel).
+// ---------------------------------------------------------------------
+constexpr int kWideBits = 12;                 // bisection steps a pass
+constexpr int kWideBins = 1 << kWideBits;
+constexpr int kWsHead = 4;                    // max |x| bits, lo, hi, pad
+constexpr int kWsPass = kWideBins + 4;        // the bins, a ticket, pad
+constexpr int kInFlight = 16;                 // values a thread loads
+
+__host__ __device__ __forceinline__ int wide_passes(int iters) {
+  return (iters + kWideBits - 1) / kWideBits;
+}
+
+__host__ __device__ __forceinline__ int ws_stride(int iters) {
+  return kWsHead + wide_passes(iters) * kWsPass;
+}
+
+// The leaves of one wide launch: data pointer, output (and level buffer),
+// first tile, first row in the launch, row length, need.
+struct WideLeaves {
+  const void* x[kMaxLeaves];
+  void* out[kMaxLeaves];
+  int8_t* lvl[kMaxLeaves];
+  long long first_tile[kMaxLeaves];
+  int first_row[kMaxLeaves];
+  int len[kMaxLeaves];
+  int need[kMaxLeaves];
+  int count;
+};
+
+// This CTA's tile: its leaf, its row in the launch, its length, its number
+// in the row, the row's tiles, its first value in the leaf.
+struct Tile {
+  int lf, row, len, tile, tiles;
+  long long g0;
+};
+
+__device__ __forceinline__ Tile wide_tile(const WideLeaves& lv,
+                                          int tile_len) {
+  const long long b = blockIdx.x;
+  int lf = 0;
+  for (int step = kMaxLeaves / 2; step > 0; step >>= 1) {
+    if (lf + step < lv.count && lv.first_tile[lf + step] <= b) lf += step;
+  }
+  const long long n = lv.len[lf];
+  const long long tiles = (n + tile_len - 1) / tile_len;
+  const long long local = b - lv.first_tile[lf];
+  const long long r = local / tiles, t = local - r * tiles;
+  Tile o;
+  o.lf = lf;
+  o.row = lv.first_row[lf] + (int)r;
+  o.g0 = r * n + t * tile_len;
+  o.len = (int)min((long long)tile_len, n - t * tile_len);
+  o.tile = (int)t;
+  o.tiles = (int)tiles;
+  return o;
+}
+
+// A tile's values as `head` scalars up to the first 16-byte boundary,
+// `nvec` 16-byte vectors of kVW values, and the scalars after them; the
+// scalars are indexed 0 .. n_scalar - 1 (scalar()).
+template <bool kBf16>
+struct Span {
+  static constexpr int kEsz = kBf16 ? 2 : 4;
+  static constexpr int kVW = 16 / kEsz;
+  const char* p;    // the tile's first value
+  int head, nvec, len;
+  __device__ __forceinline__ Span(const void* x, long long g0, int n)
+      : p(reinterpret_cast<const char*>(x) + g0 * kEsz), len(n) {
+    head = min(n, (int)(((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) /
+                        kEsz));
+    nvec = (n - head) / kVW;
+  }
+  __device__ __forceinline__ int n_scalar() const {
+    return len - nvec * kVW;
+  }
+  __device__ __forceinline__ int scalar(int s) const {   // its index j
+    return s < head ? s : s + nvec * kVW;
+  }
+  __device__ __forceinline__ float at(int j) const {
+    if (kBf16) {
+      const unsigned short h = reinterpret_cast<const unsigned short*>(p)[j];
+      return __uint_as_float(((unsigned)h) << 16);
+    }
+    return __ldg(reinterpret_cast<const float*>(p) + j);
+  }
+  // vector i, or NaNs past the last (they bin nowhere)
+  __device__ __forceinline__ uint4 vec(int i) const {
+    return i < nvec ? __ldg(reinterpret_cast<const uint4*>(p + head * kEsz) +
+                            i)
+                    : make_uint4(~0u, ~0u, ~0u, ~0u);
+  }
+  // the kVW values of a vector, in order
+  static __device__ __forceinline__ void unpack(const uint4& w, float* v) {
+    const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (kBf16) {
+        v[2 * k] = __uint_as_float(u[k] << 16);
+        v[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+      } else {
+        v[k] = __uint_as_float(u[k]);
+      }
+    }
+  }
+};
+
+// Bin the magnitudes of kBatch values in [lo, hi) into h (a NaN bins
+// nowhere): the bin of |x| is the number of midpoints <= |x|, its estimate
+// from the position of |x| in [lo, hi) checked against the two midpoints
+// around it (a search where they disagree: an interval a few ulps wide);
+// |x| >= hi is counted in `above`.  All lanes of the warp call it together.
+__device__ __forceinline__ void bin_batch(const float* v, float lo, float hi,
+                                          float inv, const float* mid,
+                                          int nb, unsigned* h,
+                                          unsigned& above) {
+  float a[kBatch];
+  bool in[kBatch], any = false;
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    a[u] = fabsf(v[u]);
+    above += a[u] >= hi;
+    in[u] = a[u] >= lo && a[u] < hi;
+    any |= in[u];
+  }
+  if (!__any_sync(0xffffffffu, any)) return;
+  int t[kBatch], e[kBatch];
+  bool slow = false;
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    const int est = __float2int_rd(__fmul_rn(__fsub_rn(a[u], lo), inv));
+    e[u] = min(max(est, 0), nb - 1);
+    t[u] = !in[u] ? 0 : mid[e[u]] <= a[u] && a[u] < mid[e[u] + 1] ? e[u]
+                                                                  : -1;
+    slow |= t[u] < 0;
+  }
+  if (slow) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (t[u] < 0) t[u] = bin_search(a[u], e[u], mid, nb);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    if (t[u] > 0) atomicAdd(&h[t[u]], 1u);
+  }
+}
+
+// K, the number of midpoints kept, from the row's bins `tot` (warp 0): the
+// count at midpoint j is the sum of the bins from j up, and the sequential
+// decisions keep mid[j] iff that count >= need (the cluster route's walk).
+__device__ __forceinline__ int kept_midpoints(const unsigned* tot, int nb,
+                                              int need, int lane) {
+  const int per = nb >= 32 ? nb / 32 : 1;
+  const int b0 = lane * per;
+  unsigned own = 0u;
+  if (b0 < nb) {
+    for (int b = 0; b < per; ++b) own += tot[b0 + b];
+  }
+  unsigned suf = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned v = __shfl_down_sync(0xffffffffu, suf, o);
+    if (lane + o < 32) suf += v;
+  }
+  int kept = 0;
+  if (b0 < nb) {
+    unsigned s = suf - own;
+    for (int b = per - 1; b >= 0; --b) {
+      s += tot[b0 + b];
+      kept += b0 + b > 0 && s >= (unsigned)need;
+    }
+  }
+  return __reduce_add_sync(0xffffffffu, kept);
+}
+
+// the values of a vector into the output (and the wire), 16-byte stores
+// where the output is aligned as the input is
+template <bool kBf16, bool kWire>
+__device__ __forceinline__ void store_values(const float* v, int n, int j,
+                                             bool vec_ok, bool lvl_ok,
+                                             float thr, float scale,
+                                             float L, float inv_l,
+                                             bool quant, void* out,
+                                             int8_t* lvl) {
+  float o[8], q[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (k < n) o[k] = channel_value(v[k], thr, scale, L, inv_l, quant, &q[k]);
+  }
+  if (kBf16) {
+    unsigned short* oh = reinterpret_cast<unsigned short*>(out) + j;
+    if (vec_ok && n == 8) {
+      *reinterpret_cast<uint4*>(oh) = make_uint4(
+          to_bf16(o[0]) | (unsigned)to_bf16(o[1]) << 16,
+          to_bf16(o[2]) | (unsigned)to_bf16(o[3]) << 16,
+          to_bf16(o[4]) | (unsigned)to_bf16(o[5]) << 16,
+          to_bf16(o[6]) | (unsigned)to_bf16(o[7]) << 16);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (k < n) oh[k] = to_bf16(o[k]);
+      }
+    }
+  } else {
+    float* of = reinterpret_cast<float*>(out) + j;
+    if (vec_ok && n == 4) {
+      *reinterpret_cast<float4*>(of) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k < n) of[k] = o[k];
+      }
+    }
+  }
+  if (kWire) {
+    int8_t* ol = lvl + j;
+    unsigned b[2] = {0u, 0u};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k < n) b[k >> 2] |= (unsigned)((int)q[k] & 0xff) << (8 * (k & 3));
+    }
+    if (lvl_ok && n == (kBf16 ? 8 : 4)) {
+      if (kBf16) {
+        *reinterpret_cast<uint2*>(ol) = make_uint2(b[0], b[1]);
+      } else {
+        *reinterpret_cast<unsigned*>(ol) = b[0];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (k < n) ol[k] = (int8_t)(int)q[k];
+      }
+    }
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+topk_quant_wide_max(const __grid_constant__ WideLeaves lv, int tile_len,
+                    unsigned* __restrict__ ws, int stride) {
+  using S = Span<kBf16>;
+  constexpr int kVecs = kInFlight / S::kVW;
+  __shared__ unsigned wmax[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Tile tl = wide_tile(lv, tile_len);
+  const S sp(lv.x[tl.lf], tl.g0, tl.len);
+  unsigned m = 0u;
+  for (int i0 = 0; i0 < sp.nvec; i0 += kVecs * kThreads) {
+    uint4 w[kVecs];
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const int i = i0 + u * kThreads + tid;
+      w[u] = i < sp.nvec ? sp.vec(i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      float v[S::kVW];
+      S::unpack(w[u], v);
+#pragma unroll
+      for (int k = 0; k < S::kVW; ++k) m = max(m, abs_bits(v[k]));
+    }
+  }
+  if (tid < sp.n_scalar()) m = max(m, abs_bits(sp.at(sp.scalar(tid))));
+  m = __reduce_max_sync(0xffffffffu, m);
+  if (lane == 0) wmax[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = __reduce_max_sync(0xffffffffu, lane < kWarps ? wmax[lane] : 0u);
+    if (lane == 0 && m) atomicMax(ws + (long long)tl.row * stride, m);
+  }
+}
+
+// One histogram pass (kFirst: the first, from the row's max; a separate
+// instance so that the profiler tells it from the later ones).
+template <bool kBf16, bool kFirst>
+__global__ void __launch_bounds__(kThreads, 2)
+topk_quant_wide_pass(const __grid_constant__ WideLeaves lv, int tile_len,
+                     int pass, int iters, unsigned* __restrict__ ws,
+                     int stride) {
+  using S = Span<kBf16>;
+  constexpr int kVecs = kInFlight / S::kVW;
+  __shared__ unsigned hist[kWideBins];
+  __shared__ float mid[kWideBins + 1];
+  __shared__ int last, keep;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Tile tl = wide_tile(lv, tile_len);
+  unsigned* st = ws + (long long)tl.row * stride;
+  float lo = 0.0f, hi = __fadd_rn(__uint_as_float(st[0]), 1e-12f);
+  if (!kFirst) {
+    lo = __uint_as_float(st[1]);
+    hi = __uint_as_float(st[2]);
+  }
+  const int depth = min(kWideBits, iters - pass * kWideBits);
+  const int nb = 1 << depth;
+  build_midpoints(mid, lo, hi, depth);
+  for (int b = tid; b < nb; b += kThreads) hist[b] = 0u;
+  __syncthreads();
+  const float inv = hi > lo ? __fdiv_rn((float)nb, __fsub_rn(hi, lo)) : 0.0f;
+  const S sp(lv.x[tl.lf], tl.g0, tl.len);
+  unsigned above = 0u;
+  uint4 w[kVecs];
+#pragma unroll
+  for (int u = 0; u < kVecs; ++u) w[u] = sp.vec(u * kThreads + tid);
+  for (int i0 = 0; i0 < sp.nvec; i0 += kVecs * kThreads) {
+    float v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) S::unpack(w[u], v + u * S::kVW);
+    // the next vectors are in flight while these are binned
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      w[u] = sp.vec(i0 + (kVecs + u) * kThreads + tid);
+    }
+#pragma unroll
+    for (int c = 0; c < kInFlight; c += kBatch) {
+      bin_batch(v + c, lo, hi, inv, mid, nb, hist, above);
+    }
+  }
+  {
+    float v[kBatch];
+    v[0] = tid < sp.n_scalar() ? sp.at(sp.scalar(tid)) : __uint_as_float(~0u);
+#pragma unroll
+    for (int u = 1; u < kBatch; ++u) v[u] = __uint_as_float(~0u);
+    bin_batch(v, lo, hi, inv, mid, nb, hist, above);
+  }
+  above = __reduce_add_sync(0xffffffffu, above);
+  if (lane == 0 && above) atomicAdd(&hist[nb - 1], above);
+  __syncthreads();
+  unsigned* bins = st + kWsHead + pass * kWsPass;
+  for (int b = tid; b < nb; b += kThreads) {
+    if (hist[b]) atomicAdd(&bins[b], hist[b]);
+  }
+  __threadfence();       // this CTA's sums are visible before its ticket
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(&bins[kWideBins], 1u) == (unsigned)(tl.tiles - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  // every tile of the row has added its bins: decide the pass
+  __threadfence();
+  for (int b = tid; b < nb; b += kThreads) hist[b] = __ldcg(bins + b);
+  __syncthreads();
+  if (warp == 0) {
+    const int k = kept_midpoints(hist, nb, lv.need[tl.lf], lane);
+    if (lane == 0) keep = k;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    st[1] = __float_as_uint(mid[keep]);
+    st[2] = __float_as_uint(mid[keep + 1]);
+  }
+}
+
+template <bool kBf16, bool kWire>
+__global__ void __launch_bounds__(kThreads, 2)
+topk_quant_wide_store(const __grid_constant__ WideLeaves lv, int tile_len,
+                      int iters, int keep_all, int bits,
+                      const unsigned* __restrict__ ws, int stride,
+                      float* __restrict__ scales) {
+  using S = Span<kBf16>;
+  constexpr int kVecs = kInFlight / S::kVW;
+  const int tid = threadIdx.x;
+  const Tile tl = wide_tile(lv, tile_len);
+  const unsigned* st = ws + (long long)tl.row * stride;
+  const float amax = __uint_as_float(st[0]);
+  float lo = 0.0f, hi = __fadd_rn(amax, 1e-12f);
+  if (iters > 0) {
+    lo = __uint_as_float(st[1]);
+    hi = __uint_as_float(st[2]);
+  }
+  const float thr = keep_all ? 0.0f : midpoint(lo, hi);
+  const float scale = fmaxf(amax >= thr ? amax : 0.0f, 1e-12f);
+  if (kWire && tl.tile == 0 && tid == 0) scales[tl.row] = scale;
+  const bool quant = bits < 32;
+  const float L = quant ? (float)((1 << (bits - 1)) - 1) : 1.0f;
+  const float inv_l = __fdiv_rn(1.0f, L);
+  const S sp(lv.x[tl.lf], tl.g0, tl.len);
+  char* out = reinterpret_cast<char*>(lv.out[tl.lf]) + tl.g0 * S::kEsz;
+  int8_t* lvl = kWire ? lv.lvl[tl.lf] + tl.g0 : nullptr;
+  // the vectors' outputs are 16-byte (levels 4- or 8-byte) aligned
+  const bool vec_ok =
+      ((reinterpret_cast<uintptr_t>(out) + sp.head * S::kEsz) & 15) == 0;
+  const bool lvl_ok =
+      kWire && ((reinterpret_cast<uintptr_t>(lvl) + sp.head) &
+                (S::kVW - 1)) == 0;
+  for (int i0 = 0; i0 < sp.nvec; i0 += kVecs * kThreads) {
+    uint4 w[kVecs];
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) w[u] = sp.vec(i0 + u * kThreads + tid);
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const int i = i0 + u * kThreads + tid;
+      if (i < sp.nvec) {
+        float v[S::kVW];
+        S::unpack(w[u], v);
+        store_values<kBf16, kWire>(v, S::kVW, sp.head + i * S::kVW, vec_ok,
+                                   lvl_ok, thr, scale, L, inv_l, quant, out,
+                                   lvl);
+      }
+    }
+  }
+  if (tid < sp.n_scalar()) {
+    const int j = sp.scalar(tid);
+    const float v = sp.at(j);
+    store_values<kBf16, kWire>(&v, 1, j, false, false, thr, scale, L, inv_l,
+                               quant, out, lvl);
+  }
+}
+
+// One wide launch: the workspace's rows zeroed, the max, the passes, the
+// store, on `stream`; `scales` (rows of the launch) asks for the wire.
+template <bool kBf16, bool kWire>
+cudaError_t wide_launch(const WideLeaves& lv, long long tiles, int rows,
+                        int tile_len, int iters, int keep_all, int bits,
+                        unsigned* ws, float* scales, cudaStream_t stream) {
+  if (keep_all) iters = 0;
+  const int stride = ws_stride(iters);
+  cudaError_t err = cudaMemsetAsync(
+      ws, 0, (size_t)rows * stride * sizeof(unsigned), stream);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)tiles);
+  topk_quant_wide_max<kBf16><<<grid, kThreads, 0, stream>>>(lv, tile_len, ws,
+                                                            stride);
+  err = cudaGetLastError();
+  for (int pass = 0; err == cudaSuccess && pass < wide_passes(iters);
+       ++pass) {
+    if (pass == 0) {
+      topk_quant_wide_pass<kBf16, true><<<grid, kThreads, 0, stream>>>(
+          lv, tile_len, pass, iters, ws, stride);
+    } else {
+      topk_quant_wide_pass<kBf16, false><<<grid, kThreads, 0, stream>>>(
+          lv, tile_len, pass, iters, ws, stride);
+    }
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  topk_quant_wide_store<kBf16, kWire><<<grid, kThreads, 0, stream>>>(
+      lv, tile_len, iters, keep_all, bits, ws, stride, scales);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -649,58 +1133,117 @@ int topk_quant_launch(int n_leaves, const long long* ptrs,
                             scales, stream);
 }
 
-// The channel form over n_leaves leaves (f32, or bf16 when is_bf16), one
-// launch on `stream`: leaf i has ns[i] values at ptrs[i], cut into rows of
-// lens[i] (ns[i] a multiple of it), its rows numbered from firsts[i] in
-// the launch (firsts[0] = 0, `rows` in all), and its values written to
-// outs[i], same dtype and layout.  Each row takes `slices` CTAs of one
-// cluster; a midpoint is kept as lo when at least needs[i] values of the
-// row are >= it (the least count c with c * f32(1/lens[i]) > p_s in f32).
-// bits is 2..16, or 32 for no quantization; keep_all (p_s >= 1) keeps
-// every value without a search.  With lvls not null (bits 2..8) it also
-// writes each value's int8 level to lvls[i] (the leaf's layout) and each
-// row's f32 scale to scales[row], rows numbered in the launch.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
-// does not take.
-int topk_channel_launch(int n_leaves, const long long* ptrs,
-                        const long long* outs, const long long* ns,
-                        const long long* lens, const long long* needs,
-                        const long long* firsts, int rows, int is_bf16,
-                        int slices, int bits, int iters, int keep_all,
-                        const long long* lvls, void* scales, void* stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves || rows < 1 || slices < 1 ||
-      slices > kCluster || !((bits >= 2 && bits <= 16) || bits == 32) ||
-      iters < 0 || (long long)rows * slices > 0x7fffffffLL ||
-      firsts[0] != 0 || (lvls && (bits > 8 || !scales))) {
+// The channel form over the leaves of a plan (kernels/topk_quant.py::
+// _channel_layout), every launch of it on `stream`:
+//   plan = [entries, then per entry: slices (0: the wide route), leaves,
+//           rows, tiles, workspace row, first scale row, tile length,
+//           then per leaf: its index in xptrs, values, row length, need,
+//           first row in the entry, first tile, offset of its output]
+// Leaf i's values are at xptrs[index] (f32, or bf16 when is_bf16), cut
+// into rows of its row length; its values are written at `out` + offset
+// (same dtype, same layout) and, where `lvl` is not null (the wire, bits
+// 2..8), its int8 levels at `lvl` + offset and each row's f32 scale at
+// `scales` + the entry's first scale row + the row's number in the entry.
+// A cluster entry takes one launch of `slices` CTAs a row; a wide entry
+// takes tiles of its tile length and its rows' state in `ws`
+// (`ws_stride(iters)` u32 a row from its workspace row, `ws_words` in
+// all).  A midpoint is kept as lo when at least `need` values of its row
+// are >= it (the least count c with c * f32(1/len) > p_s in f32).  bits is
+// 2..16, or 32 for no quantization; keep_all (p_s >= 1) keeps every value
+// without a search.  Returns the first CUDA error, or
+// cudaErrorInvalidValue for arguments the kernels do not take (before
+// anything is launched).
+int topk_channel_run(const long long* plan, const long long* xptrs,
+                     void* out, void* lvl, void* scales, void* ws,
+                     long long ws_words, int is_bf16, int bits, int iters,
+                     int keep_all, void* stream) {
+  if (!((bits >= 2 && bits <= 16) || bits == 32) || iters < 0 ||
+      (lvl && (bits > 8 || !scales))) {
     return (int)cudaErrorInvalidValue;
+  }
+  const int stride = ws_stride(keep_all ? 0 : iters);
+  constexpr int kHead = 7, kLeaf = 7;     // table words an entry, a leaf
+  // the whole plan is checked before the first launch
+  const long long n_entries = plan[0];
+  const long long* p = plan + 1;
+  for (long long e = 0; e < n_entries; ++e) {
+    const long long slices = p[0], k = p[1], rows = p[2], tiles = p[3];
+    const long long ws_row = p[4], tile_len = p[6];
+    if (k < 1 || k > kMaxLeaves || rows < 1 || slices < 0 ||
+        slices > kCluster || rows * (slices ? slices : 1) > 0x7fffffffLL ||
+        (!slices && (tiles < 1 || tiles > 0x7fffffffLL || tile_len < 1 ||
+                     tile_len > 0x7fffffffLL || ws_row < 0 ||
+                     (ws_row + rows) * stride > ws_words || !ws))) {
+      return (int)cudaErrorInvalidValue;
+    }
+    for (long long i = 0; i < k; ++i) {
+      const long long* q = p + kHead + kLeaf * i;
+      if (q[2] < 1 || q[2] > 0x7fffffffLL || q[1] % q[2] != 0 || q[3] < 0 ||
+          q[3] > q[2] + 1 || (i == 0 && (q[4] != 0 || q[5] != 0))) {
+        return (int)cudaErrorInvalidValue;
+      }
+    }
+    p += kHead + kLeaf * k;
   }
   cudaError_t err = configure_once();
   if (err != cudaSuccess) return (int)err;
-  Leaves lv = {};
-  int cap = 0;
-  for (int i = 0; i < n_leaves; ++i) {
-    if (lens[i] < 1 || lens[i] > 0x7fffffffLL || ns[i] % lens[i] != 0 ||
-        needs[i] < 0 || needs[i] > lens[i] + 1) {
-      return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int esz = is_bf16 ? 2 : 4;
+  p = plan + 1;
+  for (long long e = 0; e < n_entries && err == cudaSuccess; ++e) {
+    const int slices = (int)p[0], k = (int)p[1], rows = (int)p[2];
+    const long long tiles = p[3], ws_row = p[4];
+    float* sc = scales ? reinterpret_cast<float*>(scales) + p[5] : nullptr;
+    const int tile_len = (int)p[6];
+    const long long* q = p + kHead;
+    p += kHead + kLeaf * k;
+    if (slices > 0) {
+      Leaves lv = {};
+      int cap = 0;
+      for (int i = 0; i < k; ++i, q += kLeaf) {
+        lv.x[i] = reinterpret_cast<const void*>(xptrs[q[0]]);
+        lv.out[i] = reinterpret_cast<char*>(out) + q[6] * esz;
+        lv.lvl[i] = lvl ? reinterpret_cast<int8_t*>(lvl) + q[6] : nullptr;
+        lv.n[i] = q[1];
+        lv.len[i] = (int)q[2];
+        lv.need[i] = (int)q[3];
+        lv.first[i] = q[4];
+        const int part = slice_len(lv.len[i], slices);
+        if (part <= kMaxSlice && part > cap) cap = part;
+      }
+      lv.count = k;
+      err = lvl ? launch<true, true>(lv, rows, is_bf16, 0, slices, 0, bits,
+                                     iters, cap, keep_all, nullptr, sc,
+                                     stream)
+                : launch<true>(lv, rows, is_bf16, 0, slices, 0, bits, iters,
+                               cap, keep_all, nullptr, nullptr, stream);
+      continue;
     }
-    lv.x[i] = reinterpret_cast<const void*>(ptrs[i]);
-    lv.out[i] = reinterpret_cast<void*>(outs[i]);
-    lv.n[i] = ns[i];
-    lv.first[i] = firsts[i];
-    lv.len[i] = (int)lens[i];
-    lv.need[i] = (int)needs[i];
-    lv.lvl[i] = lvls ? reinterpret_cast<int8_t*>(lvls[i]) : nullptr;
-    const int part = slice_len(lv.len[i], slices);
-    if (part <= kMaxSlice && part > cap) cap = part;
+    WideLeaves lv = {};
+    for (int i = 0; i < k; ++i, q += kLeaf) {
+      lv.x[i] = reinterpret_cast<const void*>(xptrs[q[0]]);
+      lv.out[i] = reinterpret_cast<char*>(out) + q[6] * esz;
+      lv.lvl[i] = lvl ? reinterpret_cast<int8_t*>(lvl) + q[6] : nullptr;
+      lv.len[i] = (int)q[2];
+      lv.need[i] = (int)q[3];
+      lv.first_row[i] = (int)q[4];
+      lv.first_tile[i] = q[5];
+    }
+    lv.count = k;
+    unsigned* w = reinterpret_cast<unsigned*>(ws) + ws_row * stride;
+    if (is_bf16) {
+      err = sc ? wide_launch<true, true>(lv, tiles, rows, tile_len, iters,
+                                         keep_all, bits, w, sc, s)
+               : wide_launch<true, false>(lv, tiles, rows, tile_len, iters,
+                                          keep_all, bits, w, sc, s);
+    } else {
+      err = sc ? wide_launch<false, true>(lv, tiles, rows, tile_len, iters,
+                                          keep_all, bits, w, sc, s)
+               : wide_launch<false, false>(lv, tiles, rows, tile_len, iters,
+                                           keep_all, bits, w, sc, s);
+    }
   }
-  lv.count = n_leaves;
-  if (lvls) {
-    return (int)launch<true, true>(lv, rows, is_bf16, 0, slices, 0, bits,
-                                   iters, cap, keep_all, nullptr, scales,
-                                   stream);
-  }
-  return (int)launch<true>(lv, rows, is_bf16, 0, slices, 0, bits, iters, cap,
-                           keep_all, nullptr, nullptr, stream);
+  return (int)err;
 }
 
 }  // extern "C"

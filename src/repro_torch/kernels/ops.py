@@ -54,8 +54,10 @@ def threshold_channel_leaves(leaves: Sequence[torch.Tensor], p_s: float,
     """The cohort trainer's threshold channel: each leaf ``(C, ...)`` row
     by row (one row per device) through ``sparsify_quantize_threshold``,
     the JAX ``jax.vmap(ThresholdGraphCodec(p_s, p_q, iters).apply_tree)``.
-    On CUDA tensors kernel B's channel form, one launch per cluster size
-    (2 for the CNN); on CPU tensors its plain version.  At ``p_s >= 1``
+    On CUDA tensors kernel B's channel form, one entry of its plan per
+    cluster size (2 for the CNN) and one per group of rows of ``WIDE_MIN``
+    values or more (its wide route), each entry one count of its
+    ``LAUNCHES``; on CPU tensors its plain version.  At ``p_s >= 1``
     and ``p_q >= 32`` the leaves come back as they are, with no launch.
     With ``wire`` (``p_q`` <= 8) it returns (values, int8 levels, f32
     scales per row): the federated round's ``compress_delta`` of each row,

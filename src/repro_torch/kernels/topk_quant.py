@@ -17,7 +17,8 @@ kept values is exact in f32):
   leaves, rows read straight from the unpadded leaves, the bisection taken
   8 steps per pass over a row; a row of more than
   ``CTA_ROW`` values is spread over a thread-block cluster of up to
-  ``CLUSTER`` CTAs.
+  ``CLUSTER`` CTAs (the channel form's rows of ``WIDE_MIN`` values or more
+  take its wide route instead).
 
 :func:`topk_quant_leaves` and :func:`topk_quant` pick by device: the
 kernel for CUDA tensors (a build or launch failure raises), the plain
@@ -30,20 +31,24 @@ dequantized value in the leaf's dtype and layout, bit-identical to the
 JAX package's ``sparsify_quantize_threshold`` under ``jax.jit`` and
 ``jax.vmap`` (the kept fraction ``count * f32(1/len)``, the value
 ``(level * scale) * f32(1/L)``), for ``bits`` 2..16 or 32.  Its plain
-version is :func:`threshold_channel_plain`; on the card the same kernel
-runs with one launch per cluster size (:func:`channel_plan`).
+version is :func:`threshold_channel_plain`.  On the card one C call runs
+its :func:`channel_plan` over two routes: a row of fewer than ``WIDE_MIN``
+values on the same kernel as the block form, one launch per cluster size;
+a longer row on the wide route, one CTA per tile over the whole card (its
+max, one histogram pass per 12 bisection steps, its store).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.compression import (FLOAT_BITS, recip32,
                                           sparsify_quantize_threshold_rows)
+from repro_torch.kernels.build import check, library
 
 DEFAULT_BLOCK = 16384
 
@@ -55,8 +60,22 @@ DEFAULT_BLOCK = 16384
 CTA_ROW = 4096
 CLUSTER = 8
 MAX_LEAVES = 64
+# the channel form's two routes: a row of fewer than WIDE_MIN values takes
+# the cluster route above (an 8-CTA cluster's slices fit shared memory up
+# to 376,832 values); a longer one the wide route, one CTA per tile of the
+# row over the whole card (WIDE marks its plan entries), a tile of about a
+# TILE_CTAS-th of the entry's values within [TILE_MIN, TILE_MAX].  Measured
+# on the card (chip_smoke.py phase 35, PERF.md): the cluster route is as
+# fast or faster at rows of 2^18 values, the wide route 2-3x faster at 2^19
+# and up to 50x at 2^27; a 256th of the values was the best tile, or close
+# to it, at every size of the sweep.
+WIDE_MIN = 376_833
+TILE_MIN, TILE_MAX, TILE_CTAS = 8_192, 131_072, 256
+WIDE = 0
 
-# launches of the CUDA kernel in this process; set to 0 to count a window
+# launches of kernel B in this process, set to 0 to count a window: one
+# per block-form launch and one per entry of the channel form's plan,
+# however many CUDA launches the entry makes (a wide entry makes 3 or more)
 LAUNCHES = 0
 
 Rows = Tuple[torch.Tensor, torch.Tensor]
@@ -171,7 +190,6 @@ def _rows_cuda(leaves: Sequence[torch.Tensor], p_s: float, bits: int,
                                                 List[int]]:
     """All leaves' rows through the kernel: (levels (R, block), scales
     (R, 1), each leaf's first row)."""
-    from repro_torch.kernels.build import check, library
     global LAUNCHES
     device = leaves[0].device
     flats = [x.contiguous().reshape(-1) for x in leaves]
@@ -281,25 +299,88 @@ def channel_need(row_len: int, p_s: float) -> int:
     return c
 
 
-def channel_plan(row_lens: Sequence[int], rows: Sequence[int]
-                 ) -> List[Tuple[int, List[int], List[int], int]]:
-    """Shape-only plan of the channel form's launches for leaves of
-    ``rows[i]`` rows of ``row_lens[i]`` values: leaves grouped by the CTAs
-    a row takes (``slices_for``; a cluster's size is fixed per launch), in
-    increasing order, ``MAX_LEAVES`` leaves a launch.  Per launch: (CTAs a
-    row, its leaves' indices, each one's first row in the launch, its row
-    count)."""
+class ChannelLaunch(NamedTuple):
+    """One entry of :func:`channel_plan`: the leaves ``part`` (indices),
+    each one's first row in the entry (``firsts``), its ``rows`` in all,
+    and the route: ``slices`` CTAs a row of one cluster, or ``WIDE``, with
+    its ``tile`` length, each leaf's first tile (``tile_firsts``), the
+    entry's ``tiles`` and its first row of the workspace (``ws_row``)."""
+    slices: int
+    part: List[int]
+    firsts: List[int]
+    rows: int
+    tile: int
+    tile_firsts: List[int]
+    tiles: int
+    ws_row: int
+
+
+def wide_tile_len(values: int) -> int:
+    """The wide route's tile for an entry of ``values`` values: the least
+    power of two at or above a TILE_CTAS-th of them, within [TILE_MIN,
+    TILE_MAX] (fewer CTAs than the card holds at once leave it idle, and
+    each CTA merges its histogram into the row's)."""
+    return min(TILE_MAX, max(TILE_MIN, 1 << (-(-values // TILE_CTAS)
+                                             - 1).bit_length()))
+
+
+WIDE_BITS = 12    # bisection steps a pass of the wide route (kWideBits)
+
+
+def ws_stride(iters: int) -> int:
+    """u32 words of a wide-route row's workspace (``ws_stride`` in
+    csrc/topk_quant.cu): its max, lo and hi, then per pass of 12 bisection
+    steps 4,096 bins and a ticket."""
+    return 4 + -(-iters // WIDE_BITS) * ((1 << WIDE_BITS) + 4)
+
+
+def channel_plan(row_lens: Sequence[int], rows: Sequence[int],
+                 tile: Optional[int] = None, wide_min: int = WIDE_MIN
+                 ) -> List[ChannelLaunch]:
+    """Shape-only plan of the channel form for leaves of ``rows[i]`` rows
+    of ``row_lens[i]`` values: a leaf whose rows hold fewer than
+    ``wide_min`` values takes the cluster route, grouped with the others
+    of its cluster size (``slices_for``; fixed per launch) in increasing
+    order; the longer ones take the wide route, one CTA per ``tile`` values
+    of each row (:func:`wide_tile_len` of the entry's values by default),
+    after them; ``MAX_LEAVES`` leaves an entry.  Each wide entry has rows
+    of the workspace of its own."""
+    for n in row_lens:
+        if not 1 <= n < 2 ** 31:
+            raise ValueError(f"a channel row holds 1 to 2^31 - 1 values, "
+                             f"got {n}")
+    if tile is not None and tile < 1:
+        raise ValueError(f"the wide route's tile must be >= 1, got {tile}")
     groups: dict = {}
     for i, n in enumerate(row_lens):
-        groups.setdefault(slices_for(n), []).append(i)
-    plan = []
-    for slices in sorted(groups):
+        groups.setdefault(WIDE if n >= wide_min else slices_for(n),
+                          []).append(i)
+    plan, ws_row = [], 0
+    for slices in sorted(groups, key=lambda s: (s == WIDE, s)):
         idx = groups[slices]
         for a in range(0, len(idx), MAX_LEAVES):
             part = idx[a:a + MAX_LEAVES]
             firsts = [int(f) for f in np.cumsum(
                 [0] + [rows[i] for i in part[:-1]])]
-            plan.append((slices, part, firsts, sum(rows[i] for i in part)))
+            total = sum(rows[i] for i in part)
+            if total * max(slices, 1) >= 2 ** 31:
+                raise ValueError(f"a channel launch takes under 2^31 rows "
+                                 f"of CTAs, got {total} rows")
+            if slices != WIDE:
+                plan.append(ChannelLaunch(slices, part, firsts, total, 0, [],
+                                          0, 0))
+                continue
+            t = tile or wide_tile_len(sum(rows[i] * row_lens[i]
+                                          for i in part))
+            per = [rows[i] * -(-row_lens[i] // t) for i in part]
+            if sum(per) >= 2 ** 31:
+                raise ValueError(f"a wide launch takes under 2^31 tiles, got "
+                                 f"{sum(per)} (tile {t})")
+            plan.append(ChannelLaunch(
+                WIDE, part, firsts, total, t,
+                [int(f) for f in np.cumsum([0] + per[:-1])], sum(per),
+                ws_row))
+            ws_row += total
     return plan
 
 
@@ -328,72 +409,112 @@ def check_channel(leaves: Sequence[torch.Tensor], p_q: int,
     return device
 
 
+class _Layout(NamedTuple):
+    """The shape-only part of a channel call (:func:`_channel_layout`)."""
+    table: np.ndarray     # the plan as topk_channel_run reads it
+    entries: int
+    out_len: int          # elements of the flat output (and level) buffer
+    views: list           # per leaf (shape, stride, offset) in it
+    scale_len: int        # rows of the flat scale buffer
+    scale_views: list     # per leaf (offset, rows) in it
+    ws_rows: int          # rows of the wide route's workspace
+
+
+OUT_ALIGN = 16    # each leaf's output starts at a multiple of 16 values
+
+
 @functools.lru_cache(maxsize=256)
-def _channel_launches(shapes: Tuple[Tuple[int, ...], ...], p_s: float
-                      ) -> List[Tuple[int, List[int], tuple, tuple, tuple,
-                                      tuple, int]]:
-    """The shape-only arguments of the channel form's launches for leaves
-    of ``shapes``: per launch (CTAs a row, its leaves' indices, their
-    element counts, row lengths, needs and first rows as ``ctypes``
-    arrays, its row count).  Empty leaves are left out."""
-    i64 = ctypes.c_longlong
-    live = [i for i, s in enumerate(shapes) if int(np.prod(s)) > 0]
-    ns = [int(np.prod(shapes[i])) for i in live]
-    lens = [n // shapes[i][0] for n, i in zip(ns, live)]
-    out = []
-    for slices, part, firsts, rows in channel_plan(
-            lens, [shapes[i][0] for i in live]):
-        k = len(part)
-        out.append((slices, [live[j] for j in part],
-                    (i64 * k)(*[ns[j] for j in part]),
-                    (i64 * k)(*[lens[j] for j in part]),
-                    (i64 * k)(*[0 if p_s >= 1.0 else
-                                channel_need(lens[j], p_s) for j in part]),
-                    (i64 * k)(*firsts), rows))
-    return out
+def _channel_layout(shapes: Tuple[torch.Size, ...], p_s: float,
+                    tile: Optional[int], wide_min: int) -> _Layout:
+    """The plan of :func:`channel_plan` for leaves of ``shapes`` as one
+    int64 table, and where each leaf's results lie in the call's flat
+    buffers.  Empty leaves are left out of the plan."""
+    sizes = [int(np.prod(s)) for s in shapes]
+    offs = [int(o) for o in np.cumsum(
+        [0] + [-(-n // OUT_ALIGN) * OUT_ALIGN for n in sizes])]
+    live = [i for i, n in enumerate(sizes) if n > 0]
+    lens = [sizes[i] // shapes[i][0] for i in live]
+    plan = channel_plan(lens, [shapes[i][0] for i in live], tile, wide_min)
+    table, scale_row, scale_views = [len(plan)], 0, [None] * len(shapes)
+    for e in plan:
+        table += [e.slices, len(e.part), e.rows, e.tiles, e.ws_row,
+                  scale_row, e.tile]
+        for j, i in enumerate(e.part):
+            leaf = live[i]
+            table += [leaf, sizes[leaf], lens[i],
+                      0 if p_s >= 1.0 else channel_need(lens[i], p_s),
+                      e.firsts[j], e.tile_firsts[j] if e.tile_firsts else 0,
+                      offs[leaf]]
+            scale_views[leaf] = (scale_row + e.firsts[j], shapes[leaf][0])
+        scale_row += e.rows
+    for i, s in enumerate(shapes):       # empty leaves' scales: unwritten
+        if scale_views[i] is None:
+            scale_views[i] = (scale_row, s[0])
+            scale_row += s[0]
+    views = [(s, tuple(int(st) for st in np.cumprod(
+        (1,) + tuple(s[:0:-1]))[::-1]) if len(s) else (), o)
+        for s, o in zip(shapes, offs)]
+    ws_rows = sum(e.rows for e in plan if e.slices == WIDE)
+    return _Layout(np.asarray(table, np.int64), len(plan), max(offs[-1], 1),
+                   views, max(scale_row, 1), scale_views, ws_rows)
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(device: torch.device, stream: int, words: int
+               ) -> torch.Tensor:
+    """The wide route's workspace on ``device`` for ``stream``: kept
+    between calls (each call zeroes its rows on the stream) and grown when
+    a call needs more."""
+    key = (device.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < words:
+        ws = torch.empty(max(words, 1 << 14), dtype=torch.int32,
+                         device=device)
+        _WORKSPACE[key] = ws
+    return ws
 
 
 def threshold_channel_cuda(leaves: Sequence[torch.Tensor], p_s: float,
-                           p_q: int, iters: int, wire: bool = False):
-    """The channel form through the kernel: one launch per group of
-    :func:`channel_plan`, results in fresh tensors of the leaves' shapes.
-    With ``wire`` (``p_q`` <= 8) -> (values, int8 levels, f32 scales per
-    row), as :func:`threshold_channel_plain` gives them."""
-    from repro_torch.kernels.build import check, library
+                           p_q: int, iters: int, wire: bool = False, *,
+                           tile: Optional[int] = None,
+                           wide_min: int = WIDE_MIN):
+    """The channel form through the kernels: one C call for the whole
+    :func:`channel_plan` (each cluster entry one launch, each wide entry
+    its workspace zeroed and 2 + ceil(iters / 12) launches), the results
+    views into one flat output buffer.  With ``wire`` (``p_q`` <= 8) ->
+    (values, int8 levels, f32 scales per row), as
+    :func:`threshold_channel_plain` gives them, from one level and one
+    scale buffer.  ``tile`` and ``wide_min`` choose the routes (the
+    defaults were measured on the card)."""
     global LAUNCHES
     if wire and p_q > 8:
         raise ValueError(f"the int8 wire takes p_q <= 8, got {p_q}")
-    flats = [x.contiguous() for x in leaves]
-    outs = [torch.empty_like(x) for x in flats]
-    lvls = [torch.empty(x.shape, dtype=torch.int8, device=x.device)
-            for x in flats] if wire else None
-    scales = [torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-              for x in flats] if wire else None
-    bits = FLOAT_BITS if p_q >= FLOAT_BITS else int(p_q)
-    is_bf16 = int(flats[0].dtype == torch.bfloat16)
-    stream = torch.cuda.current_stream(flats[0].device).cuda_stream
-    lib = library()
-    i64 = ctypes.c_longlong
-    for slices, sel, ns, lens, needs, firsts, rows in _channel_launches(
-            tuple(tuple(x.shape) for x in flats), float(p_s)):
-        k = len(sel)
-        sc = None
-        if wire:    # one scale per row of the launch, split after it
-            sc = torch.empty(rows, dtype=torch.float32,
-                             device=flats[0].device)
-        err = lib.topk_channel_launch(
-            k, (i64 * k)(*[flats[i].data_ptr() for i in sel]),
-            (i64 * k)(*[outs[i].data_ptr() for i in sel]), ns, lens, needs,
-            firsts, rows, is_bf16, slices, bits, int(iters),
-            int(p_s >= 1.0),
-            (i64 * k)(*[lvls[i].data_ptr() for i in sel]) if wire else None,
-            sc.data_ptr() if wire else None, stream)
-        check(err, "topk_quant channel kernel")
-        LAUNCHES += 1
-        if wire:
-            for j, i in enumerate(sel):
-                scales[i] = sc.narrow(0, firsts[j], flats[i].shape[0])
-    vals = [o.view(x.shape) for o, x in zip(outs, leaves)]
+    xs = [x.contiguous() for x in leaves]
+    x0 = xs[0]
+    dev = x0.device
+    lay = _channel_layout(tuple(x.shape for x in xs), float(p_s), tile,
+                          wide_min)
+    out = torch.empty(lay.out_len, dtype=x0.dtype, device=dev)
+    lvl = torch.empty(lay.out_len, dtype=torch.int8, device=dev) \
+        if wire else None
+    sc = torch.empty(lay.scale_len, dtype=torch.float32, device=dev) \
+        if wire else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    iters = int(iters)
+    words = lay.ws_rows * ws_stride(0 if p_s >= 1.0 else iters)
+    ws = _workspace(dev, stream, words).data_ptr() if words else None
+    ptrs = np.fromiter((x.data_ptr() for x in xs), np.int64, len(xs))
+    check(library().topk_channel_run(
+        lay.table.ctypes.data, ptrs.ctypes.data, out.data_ptr(),
+        lvl.data_ptr() if wire else None, sc.data_ptr() if wire else None,
+        ws, words, int(x0.dtype == torch.bfloat16),
+        FLOAT_BITS if p_q >= FLOAT_BITS else int(p_q), iters,
+        int(p_s >= 1.0), stream), "topk_quant channel kernel")
+    LAUNCHES += lay.entries
+    vals = [out.as_strided(*v) for v in lay.views]
     if not wire:
         return vals
-    return vals, [v.view(x.shape) for v, x in zip(lvls, leaves)], scales
+    return (vals, [lvl.as_strided(*v) for v in lay.views],
+            [sc.narrow(0, *v) for v in lay.scale_views])

@@ -159,7 +159,7 @@ def test_chip_smoke_trainer_phases_rehearse_on_cpu(capsys):
         smoke.phase(phase.__name__, phase)
     assert smoke.failures == []
     out = capsys.readouterr().out
-    assert out.count("equal to the plain version") == 3
+    assert out.count("equal to the plain version") == 4
     assert "equals the same deltas through threshold_channel_plain" in out
     assert smoke.train["fed_smollm"]["rounds"] == 5
     assert smoke.train["fed_mamba"]["grad_max_abs_err"] <= chip_smoke.SSD_TOL
