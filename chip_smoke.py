@@ -147,21 +147,31 @@ Phases, in order; the script exits nonzero if any of them fails:
    ``LOGIT_TOL``, greedy tokens equal, and for the dense and MoE ones the
    batcher's tokens equal to solo ``generate`` on the card.
 27. Kernel C's gradient: ``torch.autograd.grad`` through the autograd
-   Function (the kernel forward, the plain version's vector-Jacobian
-   product backward) against autograd through the plain version, at
-   ``ssm_lm``'s local-step shape (40 x 16 tokens: G = 320, 4 heads, L =
-   8, P = 16, N = 8) within ``SSD_TOL`` and at Mamba2-370M's admission
+   Function (the kernel forward, the backward kernel
+   ``csrc/ssd_scan_bwd.cu``) against autograd through the plain version,
+   at ``ssm_lm``'s local-step shape (40 x 16 tokens: G = 320, 4 heads, L
+   = 8, P = 16, N = 8) within ``SSD_TOL`` and at Mamba2-370M's admission
    shape within ``SSD_TOL_FULL``; then the gradient of ``ssm_lm``'s whole
    loss, kernel against plain, within ``SSD_TOL``, and how far off it is
    with the kernel's outputs detached (the port before the Function);
    then the forward timed at ``ssm_lm``'s shape against its plain
-   version and its bound.
+   version and its bound.  Then the backward kernel against the plain
+   backward (``ssd_intra_chunk_bwd_plain``) on the same tensors, within
+   ``SSD_TOL`` at ``ssm_lm``'s shape and ``SSD_TOL_FULL`` at the
+   admission shape, phase 37's round (256 cells, 32 heads), a rank's 2,
+   1 and 8 (Jamba) heads of phase 49, Jamba's prefill (N = 16) and bf16
+   b and c (their gradients also within one bf16 step after rounding),
+   the same bits on a second launch; each timed by CUDA events beside
+   the plain backward, the route before the kernel (the plain forward
+   and its VJP) and its bound (bytes over 3.35 TB/s, f32 operations over
+   67 TFLOP/s).
 28. The LM FL tasks (``transformer_lm``, ``moe_lm``, ``ssm_lm``) at the
    paper's scale (100 devices, 60,000/10,000 sequences): TEASQ (0.25, 8)
    through ``make_sim(...).run(max_rounds=5)`` on the serial trainer with
    the packed wire and on the cohort trainer at 8, every launch counter
    set to 0 before and read after: kernel B's channel form inside each
-   cohort run, kernel C inside both ``ssm_lm`` runs.  Then kernels A and
+   cohort run, kernel C and its backward kernel inside both ``ssm_lm``
+   runs, and C's plain backward never on a CUDA tensor.  Then kernels A and
    B's block form on ``transformer_lm``'s trained nested tree against
    their plain versions: exact.  One local step (loss and gradient of 40
    sequences) of each task timed, with its device busy share.
@@ -218,10 +228,12 @@ Phases, in order; the script exits nonzero if any of them fails:
 37. The federated round at full width: Mamba2-370M (48 layers, d_model
    1024), 4 groups, 1 local step, batch 8 x 256, 3 rounds: kernel C once
    per layer per local step (the groups folded into one launch by its vmap
-   rule) and kernel B's channel form every round; the first round's 4
-   group gradients with C's outputs through its autograd Function against
-   the plain version, each leaf within ``SSD_TOL`` (absolute and
-   relative, as phase 27 holds C's gradient).
+   rule), its backward kernel as often (C's plain backward never on a
+   CUDA tensor) and kernel B's channel form every round; the first
+   round's 4 group gradients with C's outputs through its autograd
+   Function (forward and backward kernels) against autograd through the
+   plain version, each leaf within ``SSD_TOL`` (absolute and relative, as
+   phase 27 holds C's gradient).
 38. Plain AdamW at full width: Qwen3-1.7B, 5 steps at batch 8 x 128 with
    ``--ckpt``: the loss on the first batch falls, peak memory and ms per
    step printed, no kernel of the port runs, and the checkpoint loads
@@ -305,9 +317,11 @@ Phases, in order; the script exits nonzero if any of them fails:
    federated round (``gather_q``, ``tp``, 4 groups x 1 step, 4 x 512,
    ``remat``): arguments equal to the prediction and the rules' block,
    peaks within 15% of the prediction, kernel C 48 launches in the
-   prefill and 96 in the round (the forward and its recompute), B in
-   the round, the ms.  One Jamba mixer at full width (128 heads, 8 a
-   rank, N = 16) on 4 x 512: one launch of C, its ms.  Kernel C against
+   prefill and 96 in the round (the forward and its recompute), its
+   backward kernel 48 in the round and none elsewhere (C's plain backward
+   never on a CUDA tensor), B in the round, the ms.  One Jamba mixer at
+   full width (128 heads, 8 a rank, N = 16) on 4 x 512: one launch of C,
+   its ms.  Kernel C against
    its plain version within ``SSD_TOL`` at the rank's shapes (2 and 8
    heads a rank) and at one head a rank (a half-empty head group), each
    timed with its bound.  Then one JSON line of kernels, the card's
@@ -528,7 +542,8 @@ class Smoke:
         from repro_torch.configs.base import get_config, get_smoke_config
         self.np, self.torch = np, torch
         self.failures = []
-        self.kernels = {"fused_pack": {}, "topk_quant": {}, "ssd_scan": {}}
+        self.kernels = {"fused_pack": {}, "topk_quant": {}, "ssd_scan": {},
+                        "ssd_scan_bwd": {}}
         self.dev = torch.device(dev)
         self.fleet = (n_devices, n_train, n_test)
         # SSM serving: Mamba2-370M at full width (a CPU rehearsal passes
@@ -619,12 +634,23 @@ class Smoke:
     def zero_counts(self):
         from repro_torch.kernels import fused_pack, ssd_scan, topk_quant
         fused_pack.LAUNCHES = topk_quant.LAUNCHES = ssd_scan.LAUNCHES = 0
+        ssd_scan.BWD_LAUNCHES = ssd_scan.BWD_PLAIN_ON_CUDA = 0
 
     def read_counts(self):
         from repro_torch.kernels import fused_pack, ssd_scan, topk_quant
         return {"fused_pack": fused_pack.LAUNCHES,
                 "topk_quant": topk_quant.LAUNCHES,
-                "ssd_scan": ssd_scan.LAUNCHES}
+                "ssd_scan": ssd_scan.LAUNCHES,
+                "ssd_scan_bwd": ssd_scan.BWD_LAUNCHES}
+
+    def no_plain_backward_on_card(self, where):
+        """Fail if C's plain backward ran on a CUDA tensor since the counts
+        were last zeroed (the backward kernel computes C's gradient
+        there)."""
+        from repro_torch.kernels import ssd_scan
+        self.expect(ssd_scan.BWD_PLAIN_ON_CUDA == 0,
+                    f"{where}: C's plain backward ran "
+                    f"{ssd_scan.BWD_PLAIN_ON_CUDA} times on CUDA tensors")
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -849,6 +875,7 @@ class Smoke:
         self.sync()
         launches = self.read_counts()
         del launches["ssd_scan"]          # not on this path
+        del launches["ssd_scan_bwd"]
         rounds = hist[-1].round
         print(f"   rounds: {rounds}, dispatches {sim.stats.dispatches}, "
               f"completions {sim.stats.completions}")
@@ -2655,6 +2682,171 @@ class Smoke:
                 B * (LM_SEQ_LEN // lm.ssm_chunk) * lm.ssm_heads,
                 lm.ssm_heads, lm.ssm_chunk, lm.ssm_head_dim, lm.ssm_state,
                 13)
+        self.kernel_c_bwd(B)
+
+    def bwd_inputs(self, G, H, L, P, N, seed, dtype):
+        """Cells (``ssd_cells``) and seeded cotangents gy, gs and ga."""
+        np, torch = self.np, self.torch
+        xb, b, c, cum = self.ssd_cells(G, H, L, P, N, seed, dtype)
+        rng = np.random.RandomState(seed + 1)
+        cot = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+            self.dev) for s in ((G, L, P), (G, N, P), (G, 1))]
+        return [xb, b, c, cum], cot
+
+    def c_bwd_work(self, G, H, L, P, N, dtype):
+        """(bytes, operations) that C's backward needs at one shape: each
+        input read once (xb, b, c, cum, gy, gs, ga) and each output written
+        once (dxb, db, dc, dcum); the products on and below the diagonal
+        only: C Bᵀ once per (batch, chunk), dW = gy Xᵀ and Wᵀ gy per cell,
+        the heads' dCB times B and times C once per (batch, chunk), and
+        (B ∘ d) gS and X gSᵀ per cell (2 operations a multiply-add)."""
+        gb = G // H
+        e = 2 if dtype == self.torch.bfloat16 else 4
+        nbytes = (4 * (2 * G * L * P + G * N * P + G + G * L)
+                  + 2 * e * gb * L * N
+                  + 4 * (G * L * P + G * L) + 2 * e * gb * L * N)
+        nops = (3 * gb * L * (L + 1) * N
+                + G * (2 * L * (L + 1) * P + 4 * L * N * P))
+        return nbytes, nops
+
+    def c_bwd_case(self, key, G, H, L, P, N, dtype, tol, seed):
+        """C's backward at one shape.  On the card: the kernel against the
+        plain backward on the same tensors (the f32 gradients within
+        ``tol``, absolute and relative; bf16 b's and c's after their one
+        rounding to bf16 also within one bf16 step), the same bits on a
+        second launch, then the kernel, the plain backward and the route
+        before the kernel (the plain forward recomputed and its VJP) timed
+        by CUDA events beside the bound.  On the CPU the Function's route
+        (the plain backward) against the written-out one."""
+        torch = self.torch
+        from repro_torch.kernels import ssd_scan as K
+        card = self.dev.type == "cuda"
+        ins, cot = self.bwd_inputs(G, H, L, P, N, seed, dtype)
+        want = K._bwd_plain_f32(*ins, *cot, H)
+        run = (lambda: K._ssd_intra_chunk_bwd_cuda(*ins, *cot, H)) if card \
+            else (lambda: K._intra_chunk_bwd(*ins, *cot, H))
+        got = run()
+        where = (f"{key} (G={G}, {H} heads, L={L}, P={P}, N={N}, "
+                 f"b and c {str(dtype).split('.')[-1]})")
+        err = 0.0
+        for n, g, w in zip(("d xb", "d b", "d c", "d cum"), got, want):
+            self.expect(bool(torch.isfinite(g).all()),
+                        f"C's backward, {n} at {where}: not finite")
+            low = dtype == torch.bfloat16 and n in ("d b", "d c")
+            if g.dtype == torch.float32:
+                e = float((g - w).abs().max())
+                err = max(err, e)
+                self.expect(torch.allclose(g, w, atol=tol, rtol=tol),
+                            f"C's backward, {n} at {where}: max abs err {e}")
+            if low:
+                # one bf16 step is 2^-8 to 2^-7 of the value
+                gq, wq = g.to(dtype).float(), w.to(dtype).float()
+                self.expect(torch.allclose(gq, wq, atol=tol, rtol=2.0 ** -7),
+                            f"C's backward, {n} at {where}: in bf16 more "
+                            f"than a step off")
+        if card:
+            again = run()
+            self.expect(all(torch.equal(a, b) for a, b in zip(got, again)),
+                        f"C's backward at {where}: not the same bits on a "
+                        f"second launch")
+        out = {"G": G, "heads": H, "L": L, "P": P, "N": N,
+               "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+               "tolerance": tol}
+        route = "the kernel" if card else \
+            "the Function's route (off the card the plain backward)"
+        line = (f"   C's backward at {where}: {route} within {tol} (atol = "
+                f"rtol) of the plain backward, max abs err {err:.3g}")
+        if card:
+            def before():
+                _, vjp = torch.func.vjp(
+                    lambda *a: K.ssd_intra_chunk_plain(*a, H), *ins)
+                return vjp(tuple(cot))
+            ms = time_cuda(run, iters=20)
+            plain = time_cuda(lambda: K._bwd_plain_f32(*ins, *cot, H),
+                              iters=5)
+            old = time_cuda(before, iters=5)
+            nbytes, nops = self.c_bwd_work(G, H, L, P, N, dtype)
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
+            out.update(ms=ms, plain_ms=plain, before_ms=old,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=nbytes, operations=nops)
+            line += (f"; {ms * 1e3:.1f} us kernel, {plain * 1e3:.1f} us "
+                     f"plain backward, {old * 1e3:.1f} us the route before "
+                     f"(plain forward and its VJP), bound "
+                     f"{max(t_bytes, t_ops) * 1e3:.2f} us ({t_bytes * 1e3:.2f}"
+                     f" us of {nbytes} bytes, {t_ops * 1e3:.2f} us of {nops} "
+                     f"f32 operations) [{self.card()}]")
+        print(line)
+        return out
+
+    def kernel_c_bwd(self, B):
+        """Kernel C's backward (``csrc/ssd_scan_bwd.cu``) against its plain
+        backward at the shapes of the paths that train through C: ``ssm_lm``'s
+        local step, the admission prefill's, phase 37's round, a rank's
+        2, 1 and 8 heads (phase 49), Jamba's N = 16 and bf16 b and c."""
+        torch = self.torch
+        from repro_torch.fl.tasks import LM_SEQ_LEN, get_task
+        lm, full, jam = (get_task("ssm_lm").model_cfg, self.ssm_cfg,
+                         self.jamba_cfg)
+        f32, bf16 = torch.float32, torch.bfloat16
+        H, L, P, N = (full.ssm_heads, full.ssm_chunk, full.ssm_head_dim,
+                      full.ssm_state)
+        # phase 37: 4 groups of batch / 4 sequences, folded into the cells
+        shp = self.train_shapes["mamba"]
+        Lr = min(L, shp["seq"])
+        round_g = shp["batch"] * (shp["seq"] // Lr) * H
+        # phase 49: rows x chunks x the rank's heads
+        rb, rl, n = self.ssm_tp_shape[:3]
+        Lt, Lj = min(L, rl), min(jam.ssm_chunk, rl)
+        # phase 23: Jamba's prefill
+        js = self.jamba_shape
+        Lp = min(jam.ssm_chunk, js["prompt_len"])
+        cases = [
+            ("ssm_lm's local step", B * (LM_SEQ_LEN // lm.ssm_chunk)
+             * lm.ssm_heads, lm.ssm_heads, lm.ssm_chunk, lm.ssm_head_dim,
+             lm.ssm_state, f32, SSD_TOL),
+            ("the admission prefill", 2 * H, H, L, P, N, f32, SSD_TOL_FULL),
+            ("phase 37's round", round_g, H, Lr, P, N, f32, SSD_TOL_FULL),
+            ("a rank's heads (49)", rb * (rl // Lt) * (H // n), H // n, Lt,
+             P, N, f32, SSD_TOL_FULL),
+            ("one head a rank (49)", rb * (rl // Lt), 1, Lt, P, N, f32,
+             SSD_TOL_FULL),
+            ("a Jamba rank's heads (49)", rb * (rl // Lj)
+             * (jam.ssm_heads // n), jam.ssm_heads // n, Lj,
+             jam.ssm_head_dim, jam.ssm_state, f32, SSD_TOL_FULL),
+            ("Jamba's prefill (23)", js["batch"] * (js["prompt_len"] // Lp)
+             * jam.ssm_heads, jam.ssm_heads, Lp, jam.ssm_head_dim,
+             jam.ssm_state, f32, SSD_TOL_FULL),
+            ("the admission prefill, bf16", 2 * H, H, L, P, N, bf16,
+             SSD_TOL_FULL),
+            ("Jamba's prefill (23), bf16", js["batch"]
+             * (js["prompt_len"] // Lp) * jam.ssm_heads, jam.ssm_heads, Lp,
+             jam.ssm_head_dim, jam.ssm_state, bf16, SSD_TOL_FULL)]
+        shapes = {}
+        for i, (key, G, h, Lc, Pc, Nc, dtype, tol) in enumerate(cases):
+            shapes[key] = self.c_bwd_case(key, G, h, Lc, Pc, Nc, dtype, tol,
+                                          60 + i)
+            if self.dev.type == "cuda":
+                torch.cuda.empty_cache()
+        k = self.kernels["ssd_scan_bwd"]
+        k.update({"name": "ssd_scan_bwd", "route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                  "replaces": "src/repro/kernels/ssd_scan.py:58",
+                  "library_ms": None,
+                  "max_abs_err": max(c["max_abs_err"]
+                                     for c in shapes.values()),
+                  "shapes": shapes})
+        if self.dev.type == "cuda":
+            # the line's numbers: the round's shape, where training spends
+            # C's backward (48 a round)
+            head = shapes["phase 37's round"]
+            k.update({key: head[key] for key in (
+                "ms", "plain_ms", "before_ms", "bound_ms", "bound_by")})
+        print("   (the backward of the JAX package's Pallas call is XLA's "
+              "autodiff of its plain ssd_chunked; no single PyTorch call "
+              "computes it: library_ms is null)")
 
     # -- phase 28 -----------------------------------------------------------
     def check_block_kernels(self, w, what):
@@ -2745,6 +2937,10 @@ class Smoke:
                     self.expect((launches["ssd_scan"] > 0) == card,
                                 f"ssm_lm {path}: kernel C's launches inside "
                                 f"sim.run: {launches}")
+                    self.expect((launches["ssd_scan_bwd"] > 0) == card,
+                                f"ssm_lm {path}: C's backward kernel's "
+                                f"launches inside sim.run: {launches}")
+                    self.no_plain_backward_on_card(f"ssm_lm {path}")
                 out[f"{name}_{path}"] = {
                     "rounds": rounds, "wall_s_per_round":
                         wall / max(rounds, 1),
@@ -3553,12 +3749,16 @@ class Smoke:
         print(f"   train.main {' '.join(argv)}: {len(hist)} rounds in "
               f"{wall:.2f} s; ms per round {[round(m, 1) for m in ms]}; "
               f"local_loss {[round(h['local_loss'], 4) for h in hist]}; "
-              f"launches {launches} (C: {cfg.n_layers} layers x 1 local "
-              f"step a round, the 4 groups folded into one launch; B: "
-              f"{per_round} a round) [{self.card()}]")
+              f"launches {launches} (C and its backward: {cfg.n_layers} "
+              f"layers x 1 local step a round, the 4 groups folded into "
+              f"one launch; B: {per_round} a round) [{self.card()}]")
         self.expect(launches["ssd_scan"] == (cfg.n_layers * len(hist)
                                              if card else 0),
                     f"kernel C's launches in the rounds: {launches}")
+        self.expect(launches["ssd_scan_bwd"] == launches["ssd_scan"],
+                    f"C's backward kernel's launches in the rounds (one per "
+                    f"forward): {launches}")
+        self.no_plain_backward_on_card("the Mamba2-370M rounds")
         self.expect(launches["topk_quant"] == (per_round * len(hist)
                                                if card else 0),
                     f"kernel B's launches in the rounds: {launches}")
@@ -3574,9 +3774,9 @@ class Smoke:
         grad = torch.func.vmap(torch.func.grad(
             lambda p, t: T.lm_loss(p, {"tokens": t}, cfg)[0]),
             in_dims=(None, 0))
-        before = K.LAUNCHES
+        before, bwd_before = K.LAUNCHES, K.BWD_LAUNCHES
         g_kernel = grad(w0, gtok)
-        used = K.LAUNCHES - before
+        used, bwd_used = K.LAUNCHES - before, K.BWD_LAUNCHES - bwd_before
         real = K.ssd_intra_chunk
         K.ssd_intra_chunk = K.ssd_intra_chunk_plain
         try:
@@ -3594,10 +3794,12 @@ class Smoke:
                         float(b.abs().max()), name))
         rel = math.sqrt(sq_d / max(sq_g, 1e-60))
         dmax = max(p[1] for p in per)
-        self.expect(used == (cfg.n_layers if card else 0),
-                    f"the kernel route launched C {used} times")
+        self.expect(used == bwd_used == (cfg.n_layers if card else 0),
+                    f"the kernel route launched C {used} times and its "
+                    f"backward {bwd_used}")
         print(f"   the first round's 4 group gradients: kernel C's route "
-              f"({used} launches) against the plain version: largest "
+              f"({used} launches, {bwd_used} of its backward) against "
+              f"autograd through the plain version: largest "
               f"element difference {dmax:.3g} (tolerance {SSD_TOL}, "
               f"absolute and relative, as phase 27), {rel:.3g} of the "
               f"gradient's norm; the leaves furthest off, relative to "
@@ -3618,6 +3820,8 @@ class Smoke:
                                          launches["topk_quant"]})
         self.add_launches("ssd_scan", {"fed round, Mamba2-370M (37)":
                                        launches["ssd_scan"]})
+        self.add_launches("ssd_scan_bwd", {"fed round, Mamba2-370M (37)":
+                                           launches["ssd_scan_bwd"]})
 
     # -- phase 38 -----------------------------------------------------------
     def train_qwen(self):
@@ -4605,6 +4809,8 @@ class Smoke:
                               lambda p, b: T.lm_loss(p, b, cfg,
                                                      remat=True)[0], fed),
                           inputs("round"), 2 * cfg.n_layers)}
+            # C's backward: once a layer in the round (the recompute's)
+            bwd_want = {"prefill": 0, "decode": 0, "round": cfg.n_layers}
             # the whole params' and cache's shapes, for the rules' block
             meta = tree_map(lambda t: t.to("meta"), whole)
             whole_cache = T.init_decode_state(cfg, B, L + gen, torch.float32,
@@ -4640,9 +4846,14 @@ class Smoke:
                 peak = predicted if peak is None else peak
                 rel = abs(predicted - peak) / peak
                 c_got, b_got = counts["ssd_scan"], counts["topk_quant"]
+                cb_got = counts["ssd_scan_bwd"]
                 self.expect(c_got == (c_want if card else 0),
                             f"{key}: kernel C launched {c_got} times "
                             f"(expected {c_want})")
+                self.expect(cb_got == (bwd_want[key] if card else 0),
+                            f"{key}: C's backward kernel launched {cb_got} "
+                            f"times (expected {bwd_want[key]})")
+                self.no_plain_backward_on_card(key)
                 if key == "round":
                     self.expect((b_got > 0) == card,
                                 f"kernel B's launches in the round: {b_got}")
@@ -4653,13 +4864,15 @@ class Smoke:
                       f"predicted = the rules' block (whole params "
                       f"{whole_bytes} B); peak {peak / 1e9:.4f} GB, "
                       f"predicted {predicted / 1e9:.4f} GB ({rel * 100:.2f}% "
-                      f"apart); {ms:.2f} ms; kernel C launches {c_got}, B "
-                      f"{b_got}; collectives a rank "
+                      f"apart); {ms:.2f} ms; kernel C launches {c_got} "
+                      f"(its backward {cb_got}), B {b_got}; collectives a "
+                      f"rank "
                       f"{pred['collectives']['total'] / 1e9:.6f} GB "
                       f"[{self.card()}]")
                 out[key] = dict(argument_bytes=held, allocated_bytes=alloc,
                                 rules_block=block, predicted_peak=predicted,
                                 measured_peak=peak, ms=ms, ssd_scan=c_got,
+                                ssd_scan_bwd=cb_got,
                                 topk_quant=b_got, flops=pred["cost"]["flops"],
                                 collectives=pred["collectives"]["total"])
 
@@ -4767,6 +4980,9 @@ class Smoke:
         self.add_launches("ssd_scan", {
             f"head-parallel Mamba2 prefill, rank 0 of {n} (49)":
                 out["prefill"]["ssd_scan"]})
+        self.add_launches("ssd_scan_bwd", {
+            f"head-parallel Mamba2 round, rank 0 of {n} (49)":
+                out["round"]["ssd_scan_bwd"]})
         if card:
             torch.cuda.empty_cache()
 
@@ -5280,7 +5496,8 @@ def main() -> int:
         return 0
     print(json.dumps({"kernels": [s.kernels["fused_pack"],
                                   s.kernels["topk_quant"],
-                                  s.kernels["ssd_scan"]]}))
+                                  s.kernels["ssd_scan"],
+                                  s.kernels["ssd_scan_bwd"]]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,9 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v"]
 # Kernels A and B are bit-exact with XLA: -fmad=false forbids contracting
 # a*b+c into one FMA, so every f32 rounding is XLA's.  Kernel C
-# (ssd_scan.cu) answers to an f32 tolerance and is bound by FFMA
-# throughput, which that flag would halve, so it compiles without it.
+# (ssd_scan.cu) and its backward (ssd_scan_bwd.cu) answer to an f32
+# tolerance and are bound by FFMA throughput, which that flag would halve,
+# so they compile without it.
 EXTRA_FLAGS = {"fused_pack.cu": ["-fmad=false"],
                "topk_quant.cu": ["-fmad=false"]}
 
@@ -139,6 +140,8 @@ def library() -> ctypes.CDLL:
     lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                     i32, vp, vp, vp, vp]
     lib.ssd_scan_launch.restype = i32
+    lib.ssd_scan_bwd_launch.argtypes = [vp] * 7 + [i32] * 7 + [vp] * 10
+    lib.ssd_scan_bwd_launch.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

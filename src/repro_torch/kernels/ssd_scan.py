@@ -20,10 +20,21 @@ other and of the JAX package's ``ssd_intra_chunk``:
   ``y`` and head group, forming ``C Bᵀ`` once for the heads of its group,
   plus one CTA per head group for ``S`` and ``a``.
 
+Its gradient, the vector-Jacobian product of the step, ships twice too:
+
+* :func:`ssd_intra_chunk_bwd_plain` -- plain PyTorch, the formulas
+  written out (no autograd);
+* the CUDA kernel ``csrc/ssd_scan_bwd.cu``: f32 FMAs on tiles in shared
+  memory, one CTA per (batch, chunk, 32-column tile, head group) for
+  ``dX``, ``dB`` and the column terms of ``dcum``, then one CTA per
+  (batch, chunk, 32-row tile) for ``dC``, the head groups' sums and
+  ``dcum``; no float atomics, so the gradient is the same from run to
+  run.
+
 :func:`ssd_intra_chunk` picks by device: the kernel for CUDA tensors (a
-build or launch failure raises), the plain version for CPU tensors.  Its
-gradient is the plain version's, recomputed in the backward pass
-(:class:`SSDIntraChunk`); there is no backward kernel.
+build or launch failure raises), the plain version for CPU tensors (and
+meta ones); its gradient (:class:`SSDIntraChunk`) goes through
+:class:`SSDIntraChunkBwd`, which picks the same way.
 
 Cells are ordered (batch, chunk, head).  ``b`` and ``c`` are the same for
 every head of a (batch, chunk), so they come once per (batch, chunk):
@@ -34,6 +45,7 @@ full-sequence SSD around the step, the counterpart of the JAX package's
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -43,6 +55,12 @@ MAX_L, MAX_P, MAX_N = 256, 64, 128
 # launches of the CUDA kernel in this process (one per ssd_intra_chunk call
 # on CUDA tensors); set to 0 to count a window
 LAUNCHES = 0
+# launches of the backward kernel (one per gradient of an ssd_intra_chunk
+# call on CUDA tensors, whatever CUDA launches it makes), and calls of the
+# plain backward on CUDA tensors, which nothing in the port makes (it
+# stays 0; chip_smoke.py checks)
+BWD_LAUNCHES = 0
+BWD_PLAIN_ON_CUDA = 0
 
 
 def _check(xb: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -125,13 +143,202 @@ def _intra_chunk(xb, b, c, cum, heads):
     raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, not {xb.device}")
 
 
+# ----------------------------------------------------------------------
+# the backward
+# ----------------------------------------------------------------------
+def _bwd_plain_f32(xb, b, c, cum, gy, gs, ga, heads):
+    """The plain backward with the gradients of b and c in f32."""
+    G, L, P = xb.shape
+    N = b.shape[-1]
+    gb = G // heads
+    f32 = torch.float32
+    x = xb.to(f32).reshape(gb, heads, L, P)
+    bf = b.to(f32)
+    cf = c.to(f32)
+    cm = cum.to(f32).reshape(gb, heads, L)
+    gy = gy.to(f32).reshape(gb, heads, L, P)
+    gs = gs.to(f32).reshape(gb, heads, N, P)
+    ga = ga.to(f32).reshape(gb, heads)
+    cb = cf @ bf.transpose(1, 2)                               # (gb, L, L)
+    tril = torch.ones((L, L), dtype=torch.bool, device=xb.device).tril()
+    # the mask in the exponent, as in the forward
+    m = torch.exp(torch.where(tril, cm[..., :, None] - cm[..., None, :],
+                              torch.full((), float("-inf"),
+                                         device=xb.device)))
+    w = cb[:, None] * m                                        # (gb,H,L,L)
+    d = torch.exp(cm[..., -1:] - cm)                           # (gb, H, L)
+    bd = bf[:, None] * d[..., None]                            # (gb,H,L,N)
+    dx = w.transpose(-1, -2) @ gy + bd @ gs                    # (gb,H,L,P)
+    dw = gy @ x.transpose(-1, -2)                              # (gb,H,L,L)
+    dcb = (dw * m).sum(1)                                      # (gb, L, L)
+    q = dw * w
+    xg = x @ gs.transpose(-1, -2)                              # (gb,H,L,N)
+    dc = dcb @ bf
+    db = dcb.transpose(-1, -2) @ cf + (d[..., None] * xg).sum(1)
+    dr = d * (bf[:, None] * xg).sum(-1)                        # (gb, H, L)
+    dcum = q.sum(-1) - q.sum(-2) - dr
+    last = dr.sum(-1) + ga * torch.exp(cm[..., -1])            # (gb, H)
+    dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last[..., None]], -1)
+    return (dx.reshape(G, L, P), db, dc, dcum.reshape(G, 1, L))
+
+
+def ssd_intra_chunk_bwd_plain(xb: torch.Tensor, b: torch.Tensor,
+                              c: torch.Tensor, cum: torch.Tensor,
+                              gy: torch.Tensor, gs: torch.Tensor,
+                              ga: torch.Tensor, heads: int = 1
+                              ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of kernel C's backward: the vector-Jacobian
+    product of :func:`ssd_intra_chunk_plain` at (xb, b, c, cum) for the
+    cotangents gy (G, L, P), gs (G, N, P) and ga (G, 1).
+
+    Per cell, with CB = C Bᵀ, M_ij = exp(cum_i - cum_j) on and below the
+    diagonal (0 above), W = CB ∘ M, d = exp(cum[L-1] - cum):
+
+        dX   = Wᵀ gy + (B ∘ d) gS
+        dW   = gy Xᵀ,  dCB = dW ∘ M,  Q = dW ∘ W
+        dC   = dCB B,  dB = dCBᵀ C + d ∘ (X gSᵀ)
+        dcum = rowsum(Q) - colsum(Q) - d ∘ r,  r = rowsum(B ∘ (X gSᵀ)),
+               plus Σ d ∘ r + ga·exp(cum[L-1]) at position L-1
+
+    dB and dC are summed over the ``heads`` cells that share b and c, and
+    come back in b's dtype (as autograd of the forward's widening gives
+    them).  -> (dxb (G, L, P), db, dc (G // heads, L, N), dcum (G, 1,
+    L))."""
+    global BWD_PLAIN_ON_CUDA
+    if xb.device.type == "cuda":
+        BWD_PLAIN_ON_CUDA += 1
+    dx, db, dc, dcum = _bwd_plain_f32(xb, b, c, cum, gy, gs, ga, heads)
+    return dx, db.to(b.dtype), dc.to(c.dtype), dcum
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(G: int, heads: int, L: int) -> Tuple[int, int]:
+    """The backward kernel's head groups: (heads a group, groups).  At
+    least as many groups as give its first pass a CTA for each of an
+    H100's 132 SMs, where the heads allow, and groups of equal size (a
+    divisor of ``heads``): the group's CTAs are the longest, and CB is
+    formed once a group.  Shape-only (the C launcher takes ``per``)."""
+    tiles = -(-L // BWD_TILE)
+    ctas = (G // heads) * tiles
+    want = max(1, min(heads, -(-BWD_CTAS // max(ctas, 1))))
+    per = max(d for d in range(1, heads + 1)
+              if heads % d == 0 and d * want <= heads)
+    return per, heads // per
+
+
+BWD_TILE = 32         # columns (rows) of a CTA's tile in the backward
+BWD_CTAS = 132        # CTAs the first pass aims for: one per SM (each
+                      # holds 192 KB of shared memory)
+
+
+def _ssd_intra_chunk_bwd_cuda(xb, b, c, cum, gy, gs, ga, heads):
+    """The backward kernel on contiguous CUDA tensors (gy, gs, ga f32):
+    the gradients of b and c in f32."""
+    from repro_torch.kernels.build import check, library
+    global BWD_LAUNCHES
+    G, L, P = xb.shape
+    N = b.shape[-1]
+    gb = G // heads
+    dev = xb.device
+    per, groups = bwd_plan(G, heads, L)
+    tiles = -(-L // BWD_TILE)
+    f32 = torch.float32
+    dx = torch.empty((G, L, P), dtype=f32, device=dev)
+    dbc = torch.empty((2, gb, L, N), dtype=f32, device=dev)
+    dcum = torch.empty((G, 1, L), dtype=f32, device=dev)
+    # the first pass's partial results, in one allocation: dCB and dB of
+    # each head group, rowsum(Q) over each column tile, the column terms
+    # of dcum and the sums of d r over each column tile
+    sizes = (groups * gb * L * L, groups * gb * L * N, G * tiles * L, G * L,
+             G * tiles)
+    ws = torch.empty(sum(-(-n // 4) * 4 for n in sizes), dtype=f32,
+                     device=dev)
+    parts, at = [], ws.data_ptr()
+    for n in sizes:                  # each part 16-byte aligned
+        parts.append(at)
+        at += 4 * (-(-n // 4) * 4)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = library().ssd_scan_bwd_launch(
+        xb.data_ptr(), b.data_ptr(), c.data_ptr(), cum.data_ptr(),
+        gy.data_ptr(), gs.data_ptr(), ga.data_ptr(),
+        int(b.dtype == torch.bfloat16), G, heads, L, P, N, per,
+        dx.data_ptr(), dbc[0].data_ptr(), dbc[1].data_ptr(),
+        dcum.data_ptr(), *parts, stream)
+    check(err, "ssd_scan backward kernel")
+    BWD_LAUNCHES += 1
+    return dx, dbc[0], dbc[1], dcum
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte-aligned address (the backward kernel
+    reads 16 bytes at a time; a view may start anywhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _intra_chunk_bwd(xb, b, c, cum, gy, gs, ga, heads):
+    """Kernel C's backward on CUDA tensors (a build or launch failure
+    raises), the plain backward on CPU and meta tensors."""
+    if xb.device.type == "cuda":
+        f32 = torch.float32
+        dx, db, dc, dcum = _ssd_intra_chunk_bwd_cuda(
+            _dense(xb), _dense(b), _dense(c), _dense(cum),
+            _dense(gy.to(f32)), _dense(gs.to(f32)), _dense(ga.to(f32)),
+            heads)
+        return dx, db.to(b.dtype), dc.to(c.dtype), dcum
+    if xb.device.type in ("cpu", "meta"):
+        return ssd_intra_chunk_bwd_plain(xb, b, c, cum, gy, gs, ga, heads)
+    raise ValueError(f"ssd_intra_chunk's backward runs on cuda or cpu, not "
+                     f"{xb.device}")
+
+
+def _fold(n, t, d):
+    """``t`` with its mapped axis ``d`` (None: not mapped, so expanded)
+    folded into the cell axis: (n, G, ...) -> (n G, ...)."""
+    t = t.expand((n,) + t.shape) if d is None else t.movedim(d, 0)
+    return t.reshape((-1,) + t.shape[2:])
+
+
+class SSDIntraChunkBwd(torch.autograd.Function):
+    """Kernel C's backward as a Function of its own: the kernel on the
+    card, the plain backward on the CPU (:func:`_intra_chunk_bwd`).  Under
+    ``torch.func.vmap`` (the federated round's ``vmap`` of
+    ``grad_and_value``, the cohort loss) the mapped axis is folded into
+    the cell axis G, as the forward's rule does, so one launch serves
+    every mapped copy.  It has no backward of its own: a graph may be
+    built through it (``grad_and_value`` differentiates with
+    ``create_graph``), but differentiating it raises."""
+
+    @staticmethod
+    def forward(xb, b, c, cum, gy, gs, ga, heads):
+        return _intra_chunk_bwd(xb, b, c, cum, gy, gs, ga, heads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("kernel C's backward has no gradient of its own "
+                           "(double backward through ssd_intra_chunk)")
+
+    @staticmethod
+    def vmap(info, in_dims, xb, b, c, cum, gy, gs, ga, heads):
+        n = info.batch_size
+        out = SSDIntraChunkBwd.apply(*(_fold(n, t, d) for t, d in zip(
+            (xb, b, c, cum, gy, gs, ga), in_dims[:7])), heads)
+        return (tuple(o.reshape((n, -1) + o.shape[1:]) for o in out),
+                (0, 0, 0, 0))
+
+
 class SSDIntraChunk(torch.autograd.Function):
     """Kernel C with a gradient.
 
-    Forward: :func:`_intra_chunk` (the kernel on the card).  Backward: the
-    vector-Jacobian product of :func:`ssd_intra_chunk_plain`, recomputed
-    from the saved inputs; the JAX package has no backward kernel either
-    (it trains by differentiating its plain ``ssd_chunked``).  Under
+    Forward: :func:`_intra_chunk` (the kernel on the card).  Backward:
+    :class:`SSDIntraChunkBwd` from the saved inputs (the backward kernel
+    on the card, the plain backward on the CPU); the JAX package has no
+    backward kernel (``jax.vjp`` cannot differentiate its Pallas call; it
+    trains by differentiating its plain ``ssd_chunked``).  Under
     ``torch.func.vmap`` the mapped axis is folded into the cell axis G:
     cells are independent, so one launch serves every mapped copy."""
 
@@ -147,25 +354,15 @@ class SSDIntraChunk(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gs, ga):
-        # torch.func.vjp, not torch.autograd.grad: the backward then also
-        # runs inside torch.func transforms (the federated round's
-        # vmap over groups of grad)
-        _, vjp = torch.func.vjp(
-            lambda *ins: ssd_intra_chunk_plain(*ins, ctx.heads),
-            *ctx.saved_tensors)
-        grads = vjp((gy, gs, ga))
+        grads = SSDIntraChunkBwd.apply(*ctx.saved_tensors, gy, gs, ga,
+                                       ctx.heads)
         return tuple(g if need else None for g, need in
                      zip(grads, ctx.needs_input_grad)) + (None,)
 
     @staticmethod
     def vmap(info, in_dims, xb, b, c, cum, heads):
         n = info.batch_size
-
-        def fold(t, d):
-            t = t.expand((n,) + t.shape) if d is None else t.movedim(d, 0)
-            return t.reshape((-1,) + t.shape[2:])
-
-        out = SSDIntraChunk.apply(*(fold(t, d) for t, d in
+        out = SSDIntraChunk.apply(*(_fold(n, t, d) for t, d in
                                     zip((xb, b, c, cum), in_dims)), heads)
         return (tuple(o.reshape((n, -1) + o.shape[1:]) for o in out),
                 (0, 0, 0))

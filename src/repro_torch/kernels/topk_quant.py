@@ -30,8 +30,10 @@ rows of its own length (one device's leaf, no pad), and the result is the
 dequantized value in the leaf's dtype and layout, bit-identical to the
 JAX package's ``sparsify_quantize_threshold`` under ``jax.jit`` and
 ``jax.vmap`` (the kept fraction ``count * f32(1/len)``, the value
-``(level * scale) * f32(1/L)``), for ``bits`` 2..16 or 32.  Its plain
-version is :func:`threshold_channel_plain`.  On the card one C call runs
+``(level * scale) * f32(1/L)``), for ``bits`` 2..16 or 32, while the
+kept counts the bisection meets near its need stay at or under 2^24
+(p_s * len <= 2^24; see :func:`channel_need`).  Its plain version is
+:func:`threshold_channel_plain`.  On the card one C call runs
 its :func:`channel_plan` over two routes: a row of fewer than ``WIDE_MIN``
 values on the same kernel as the block form, one launch per cluster size;
 a longer row on the wide route, one CTA per tile over the whole card (its
@@ -286,7 +288,18 @@ def threshold_channel_plain(leaves: Sequence[torch.Tensor], p_s: float,
 def channel_need(row_len: int, p_s: float) -> int:
     """The channel form's need: the least count c with ``f32(c) *
     f32(1/row_len) > p_s`` in f32 (``row_len + 1`` when none), the rule
-    XLA compiles the mean to.  The product is monotone in c."""
+    XLA compiles the mean to.  The product is monotone in c.
+
+    The port decides from the exact integer count.  The JAX package's
+    jitted mean sums the mask in f32, which is the count only up to 2^24:
+    past it an f32 cannot hold every integer, and the sum may land a
+    count or more off (``tests/test_torch_channel.py`` reproduces one
+    such row, 18,000,000 values at p_s = 0.99).  So the channel form is
+    bit-exact with the reference where p_s * row_len <= 2^24.  Past that a
+    bisection step whose count lands within that error of the need may
+    decide the other way, and the result is held as ``gather_q``'s float
+    noise is (``tests/torch_fed_rules.py``): within the threshold plus one
+    quantization step."""
     r, ps = np.float32(recip32(row_len)), np.float32(p_s)
 
     def keeps(c: int) -> bool:

@@ -199,6 +199,45 @@ def test_channel_need_is_the_reciprocal_rule(row_len, p_s):
         assert (c >= need) == bool(np.float32(np.float32(c) * r) > ps), c
 
 
+def test_kept_fraction_past_2_24_is_not_the_exact_count_under_jit():
+    """Where the channel form's bit-exact claim ends.  Past 2^24 kept
+    values the reference's jitted mean of the mask (an f32 sum) is not the
+    count, so near the need it can decide otherwise than the port's exact
+    count (``channel_need``).  On a row of 18,000,000 values at p_s = 0.99
+    (need 17,820,002 > 2^24; the kept positions from a seeded
+    permutation) the jitted mean keeps at one below the need, where the
+    port does not; the same construction under 2^24 (16,000,000 values,
+    need 15,840,001) decides as the port at every count around the need.
+    The smallest row found: at 17,000,000 values (p_s 0.99) and
+    16,800,000 (p_s 0.9995) no count within 3 of the need disagreed; at
+    20,000,000 (p_s 0.9) one did."""
+    mean = jax.jit(lambda m: jnp.mean(m.astype(jnp.float32)))
+    total = jax.jit(lambda m: jnp.sum(m.astype(jnp.float32)))
+
+    def decisions(n, p_s, counts):
+        need = ttq.channel_need(n, p_s)
+        perm = np.random.default_rng(0).permutation(n)
+        mask = np.zeros(n, bool)
+        out = []
+        for d in counts:
+            mask[perm[:need + d]] = True
+            jax_keeps = bool(np.float32(mean(mask)) > np.float32(p_s))
+            out.append((need + d, float(total(mask)), jax_keeps,
+                        need + d >= need))
+        return need, out
+
+    need, past = decisions(18_000_000, 0.99, (-2, -1, 0))
+    assert need > 2 ** 24
+    (_, _, jk2, pk2), (c1, s1, jk1, pk1), (_, _, jk0, pk0) = past
+    assert s1 != c1                          # the f32 sum is not the count
+    assert jk1 and not pk1                   # the reference keeps, the port
+    assert (jk2, pk2) == (False, False)      # does not; around it both
+    assert (jk0, pk0) == (True, True)        # decide alike
+    need, under = decisions(16_000_000, 0.99, (-2, -1, 0, 1))
+    assert need <= 2 ** 24
+    assert all(s == c and jk == pk for c, s, jk, pk in under)
+
+
 def test_channel_plan_groups_by_cluster_size():
     """The CNN's 8 leaves take 2 launches: the seven small ones one CTA a
     row, fc1's rows on 8-CTA clusters; a ragged list takes one launch per

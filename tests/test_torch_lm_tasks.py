@@ -409,7 +409,8 @@ def test_kernel_c_gradient_on_card(card):
     """``ssm_lm``'s loss differentiated through kernel C on the card
     equals autograd through the plain version (within phase 27's
     ``SSD_TOL``): before the autograd Function, the intra-chunk terms'
-    gradient was dropped on the card."""
+    gradient was dropped on the card.  The kernel route runs C's forward
+    and its backward kernel, the plain route neither."""
     t = get_task("ssm_lm")
     _, np_w = _jax_weights("ssm_lm", seed=6)
     x = torch.from_numpy(_tokens((8, LM_SEQ_LEN), 7)).to(card)
@@ -417,16 +418,17 @@ def test_kernel_c_gradient_on_card(card):
     for plain in (False, True):
         tp = from_numpy(np_w, card)
         ws = [a.requires_grad_(True) for a in leaves(tp)]
-        before = K.LAUNCHES
+        before, bwd_before = K.LAUNCHES, K.BWD_LAUNCHES
         if plain:
-            real = K._intra_chunk
-            K._intra_chunk = lambda *a: K.ssd_intra_chunk_plain(*a)
+            real = K.ssd_intra_chunk
+            K.ssd_intra_chunk = K.ssd_intra_chunk_plain
         try:
             loss = t.loss(tp, {"images": x, "labels": None})
             grads.append(torch.autograd.grad(loss, ws))
         finally:
             if plain:
-                K._intra_chunk = real
+                K.ssd_intra_chunk = real
         assert (K.LAUNCHES > before) != plain
+        assert (K.BWD_LAUNCHES > bwd_before) != plain
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
