@@ -161,10 +161,15 @@ Phases, in order; the script exits nonzero if any of them fails:
    admission shape, phase 37's round (256 cells, 32 heads), a rank's 2,
    1 and 8 (Jamba) heads of phase 49, Jamba's prefill (N = 16) and bf16
    b and c (their gradients also within one bf16 step after rounding),
-   the same bits on a second launch; each timed by CUDA events beside
-   the plain backward, the route before the kernel (the plain forward
-   and its VJP) and its bound (bytes over 3.35 TB/s, f32 operations over
-   67 TFLOP/s).
+   the same bits on a second launch; each with its route (1: split-TF32
+   tensor cores, 2: small chunks, f32, one launch), timed by CUDA events
+   beside the plain backward, the route before the kernel (the plain
+   forward and its VJP) and both bounds (bytes over 3.35 TB/s against
+   f32 operations over 67 TFLOP/s, or three TF32 operations for each
+   over 495 TFLOP/s); the host time of a call over 1,000 calls split by
+   step; then the sweep that sets the routes' crossover: both routes,
+   forced, at L = 8-64 with ``ssm_lm``'s and Mamba2-370M's head counts
+   and widths, each held to the plain backward.
 28. The LM FL tasks (``transformer_lm``, ``moe_lm``, ``ssm_lm``) at the
    paper's scale (100 devices, 60,000/10,000 sequences): TEASQ (0.25, 8)
    through ``make_sim(...).run(max_rounds=5)`` on the serial trainer with
@@ -360,6 +365,12 @@ CHECKOUT (default: this one), so that two trees compare on one card.
 
 times kernel B's channel form at SmolLM-135M's federated-round rows
 without its wire and, where CHECKOUT's port has it, with it, the same way.
+
+    python3 chip_smoke.py --profile-c-bwd [CHECKOUT]
+
+times the host side of kernel C's backward call at ``ssm_lm``'s shape
+with the port of CHECKOUT: its wrappers over 1,000 calls, synchronized
+only at the ends, and the steps they are made of.
 """
 from __future__ import annotations
 
@@ -515,11 +526,36 @@ def device_ms_per_call(fn, name: str, reps: int = 20,
     raise RuntimeError(f"the profiler saw no kernel named {name!r}")
 
 
+def bwd_device_split(fn, reps: int = 20):
+    """C's backward's ms a call on the card by kernel (short names), from
+    the profiler over ``reps`` calls of ``fn``, with the CUDA launches it
+    recorded a call; None where its windows recorded no such kernel (the
+    profiler loses records at times, PERF.md section 7: a window with
+    fewer launches than made gives a lower bound)."""
+    split = {}
+    try:
+        _, launches = device_ms_per_call(fn, "ssd_bwd", reps=reps,
+                                         by_kernel=split)
+    except RuntimeError:
+        return None
+    return {"ms": {short_kernel(k): v for k, v in split.items()},
+            "launches": launches}
+
+
+def device_split_text(split) -> str:
+    """``bwd_device_split``'s result as text."""
+    if split is None:
+        return "not recorded"
+    return (", ".join(f"{k} {v * 1e3:.1f} us" for k, v in split["ms"].items())
+            + f" a call ({split['launches']:.2f} CUDA launches recorded a "
+            f"call)")
+
+
 def short_kernel(key: str) -> str:
     """A kernel's name and template arguments out of the profiler's
     demangled signature."""
-    found = re.search(r"(topk_quant\w*|fused_pack\w*|ssd_scan\w*)(<[^>]*>)?",
-                      key)
+    found = re.search(r"(topk_quant\w*|fused_pack\w*|ssd_scan\w*|ssd_bwd\w*)"
+                      r"(<[^>]*>)?", key)
     return "".join(found.groups("")) if found else key
 
 
@@ -698,6 +734,25 @@ class Smoke:
                 fn = named.group(1)
             elif "registers" in line or "spill" in line:
                 print(f"   ptxas: {fn}: {line.strip()}")
+        # C's backward: registers, spills and shared memory as the card
+        # reports them (route 2's is sized to each launch's shape)
+        from repro_torch.kernels import ssd_scan as K
+        attrs, at = {}, (ctypes.c_int * 3)()
+        for k, name in enumerate(("pass 1", "pass 2", "route 2", "pass 0")):
+            for bf16 in (0, 1):
+                build.check(build.library().ssd_scan_bwd_attrs(
+                    2 * k + bf16, at), "ssd_scan_bwd_attrs")
+                key = f"{name}, {'bf16' if bf16 else 'f32'} b and c"
+                attrs[key] = {"registers": at[0], "local_bytes": at[1],
+                              "dynamic_smem_bytes": at[2]}
+                print(f"   C's backward {key}: {at[0]} registers, {at[1]} "
+                      f"bytes of local memory (spills), {at[2]} bytes of "
+                      f"dynamic shared memory allowed")
+        hb = K.small_heads(4, 8, 16, 8)
+        print(f"   C's backward route 2 at ssm_lm's shape (4 heads, L 8, P 16,"
+              f" N 8) runs {hb} heads at once in "
+              f"{K.small_smem_bytes(8, 16, 8, hb)} bytes of shared memory")
+        self.kernels["ssd_scan_bwd"]["kernel_attrs"] = attrs
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         print(f"   cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -2709,25 +2764,26 @@ class Smoke:
                 + G * (2 * L * (L + 1) * P + 4 * L * N * P))
         return nbytes, nops
 
-    def c_bwd_case(self, key, G, H, L, P, N, dtype, tol, seed):
-        """C's backward at one shape.  On the card: the kernel against the
-        plain backward on the same tensors (the f32 gradients within
-        ``tol``, absolute and relative; bf16 b's and c's after their one
-        rounding to bf16 also within one bf16 step), the same bits on a
-        second launch, then the kernel, the plain backward and the route
-        before the kernel (the plain forward recomputed and its VJP) timed
-        by CUDA events beside the bound.  On the CPU the Function's route
-        (the plain backward) against the written-out one."""
+    def c_bwd_bounds(self, G, H, L, P, N, dtype, route):
+        """C's backward's bounds at one shape: (bound of its route, bound
+        by, f32 bound, split-TF32 bound, bytes, operations).  The f32
+        bound is bytes over 3.35 TB/s against operations over 67 TFLOP/s;
+        the split-TF32 one against three TF32 operations for each over 495
+        TFLOP/s.  Route 1 runs on the tensor cores, route 2 on f32 FMAs."""
+        nbytes, nops = self.c_bwd_work(G, H, L, P, N, dtype)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_f32 = nops / PEAK_F32_OPS_PER_S * 1e3
+        t_tc = 3 * nops / PEAK_TF32_OPS_PER_S * 1e3
+        t_ops = t_tc if route == 1 else t_f32
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations",
+                max(t_bytes, t_f32), max(t_bytes, t_tc), nbytes, nops)
+
+    def c_bwd_check(self, got, want, dtype, tol, where):
+        """The backward's gradients against the plain backward's (f32)
+        within ``tol``, atol = rtol; bf16 gradients of b and c also within
+        one bf16 step after their rounding.  -> max abs err."""
         torch = self.torch
-        from repro_torch.kernels import ssd_scan as K
-        card = self.dev.type == "cuda"
-        ins, cot = self.bwd_inputs(G, H, L, P, N, seed, dtype)
-        want = K._bwd_plain_f32(*ins, *cot, H)
-        run = (lambda: K._ssd_intra_chunk_bwd_cuda(*ins, *cot, H)) if card \
-            else (lambda: K._intra_chunk_bwd(*ins, *cot, H))
-        got = run()
-        where = (f"{key} (G={G}, {H} heads, L={L}, P={P}, N={N}, "
-                 f"b and c {str(dtype).split('.')[-1]})")
         err = 0.0
         for n, g, w in zip(("d xb", "d b", "d c", "d cum"), got, want):
             self.expect(bool(torch.isfinite(g).all()),
@@ -2744,17 +2800,38 @@ class Smoke:
                 self.expect(torch.allclose(gq, wq, atol=tol, rtol=2.0 ** -7),
                             f"C's backward, {n} at {where}: in bf16 more "
                             f"than a step off")
+        return err
+
+    def c_bwd_case(self, key, G, H, L, P, N, dtype, tol, seed):
+        """C's backward at one shape.  On the card: the kernel against the
+        plain backward on the same tensors (``c_bwd_check``), the same bits
+        on a second launch, then the kernel, the plain backward and the
+        route before the kernel (the plain forward recomputed and its VJP)
+        timed by CUDA events beside both bounds.  On the CPU the Function's
+        route (the plain backward) against the written-out one."""
+        torch = self.torch
+        from repro_torch.kernels import ssd_scan as K
+        card = self.dev.type == "cuda"
+        ins, cot = self.bwd_inputs(G, H, L, P, N, seed, dtype)
+        want = K._bwd_plain_f32(*ins, *cot, H)
+        run = (lambda: K._ssd_intra_chunk_bwd_cuda(*ins, *cot, H)) if card \
+            else (lambda: K._intra_chunk_bwd(*ins, *cot, H))
+        got = run()
+        route = K.bwd_route(H, L, P, N)
+        where = (f"{key} (G={G}, {H} heads, L={L}, P={P}, N={N}, "
+                 f"b and c {str(dtype).split('.')[-1]})")
+        err = self.c_bwd_check(got, want, dtype, tol, where)
         if card:
             again = run()
             self.expect(all(torch.equal(a, b) for a, b in zip(got, again)),
                         f"C's backward at {where}: not the same bits on a "
                         f"second launch")
         out = {"G": G, "heads": H, "L": L, "P": P, "N": N,
-               "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-               "tolerance": tol}
-        route = "the kernel" if card else \
-            "the Function's route (off the card the plain backward)"
-        line = (f"   C's backward at {where}: {route} within {tol} (atol = "
+               "dtype": str(dtype).split(".")[-1], "route": route,
+               "max_abs_err": err, "tolerance": tol}
+        how = (f"route {route}" if card else
+               "the Function's route (off the card the plain backward)")
+        line = (f"   C's backward at {where}: {how} within {tol} (atol = "
                 f"rtol) of the plain backward, max abs err {err:.3g}")
         if card:
             def before():
@@ -2765,21 +2842,122 @@ class Smoke:
             plain = time_cuda(lambda: K._bwd_plain_f32(*ins, *cot, H),
                               iters=5)
             old = time_cuda(before, iters=5)
-            nbytes, nops = self.c_bwd_work(G, H, L, P, N, dtype)
-            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-            t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
-            out.update(ms=ms, plain_ms=plain, before_ms=old,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       bytes=nbytes, operations=nops)
+            bound, by, b32, btc, nbytes, nops = self.c_bwd_bounds(
+                G, H, L, P, N, dtype, route)
+            split = bwd_device_split(run)
+            out.update(ms=ms, plain_ms=plain, before_ms=old, bound_ms=bound,
+                       bound_by=by, f32_bound_ms=b32, tf32_bound_ms=btc,
+                       bytes=nbytes, operations=nops, device=split)
             line += (f"; {ms * 1e3:.1f} us kernel, {plain * 1e3:.1f} us "
                      f"plain backward, {old * 1e3:.1f} us the route before "
-                     f"(plain forward and its VJP), bound "
-                     f"{max(t_bytes, t_ops) * 1e3:.2f} us ({t_bytes * 1e3:.2f}"
-                     f" us of {nbytes} bytes, {t_ops * 1e3:.2f} us of {nops} "
-                     f"f32 operations) [{self.card()}]")
+                     f"(plain forward and its VJP); bound of its route "
+                     f"{bound * 1e3:.2f} us ({by}); f32 bound "
+                     f"{b32 * 1e3:.2f} us, split-TF32 bound {btc * 1e3:.2f}"
+                     f" us ({nbytes} bytes, {nops} f32 operations); on the "
+                     f"card (profiler): " + device_split_text(split)
+                     + f" [{self.card()}]")
         print(line)
         return out
+
+    def c_bwd_host(self, B):
+        """The host side of a backward call at ``ssm_lm``'s shape: the
+        kernel's wrapper and the Function's route over 1,000 calls each,
+        synchronized only at the ends, and the steps of a call
+        (``bwd_host_steps``)."""
+        from repro_torch.fl.tasks import LM_SEQ_LEN, get_task
+        lm = get_task("ssm_lm").model_cfg
+        G = B * (LM_SEQ_LEN // lm.ssm_chunk) * lm.ssm_heads
+        ins, cot = self.bwd_inputs(G, lm.ssm_heads, lm.ssm_chunk,
+                                   lm.ssm_head_dim, lm.ssm_state, 70,
+                                   self.torch.float32)
+        steps = bwd_host_steps(ins, cot, lm.ssm_heads)
+        print(f"   C's backward at ssm_lm's shape, host time per call over "
+              f"1,000 calls (us): " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in steps.items())
+              + f" [{self.card()}]")
+        return steps
+
+    def bwd_plan_sweep(self):
+        """Route 1 at the admission and round shapes with every head group
+        size ``per`` (a divisor of the heads), timed by CUDA events over 20
+        calls and split by kernel (profiler): the choice that
+        ``ssd_scan.bwd_plan`` makes beside the others."""
+        torch = self.torch
+        from repro_torch.kernels import ssd_scan as K
+        full = self.ssm_cfg
+        H, L, P, N = (full.ssm_heads, full.ssm_chunk, full.ssm_head_dim,
+                      full.ssm_state)
+        rows = []
+        for G in (2 * H, 8 * H):
+            ins, cot = self.bwd_inputs(G, H, L, P, N, 90, torch.float32)
+            for per in [d for d in range(1, H + 1) if H % d == 0]:
+                run = functools.partial(K._ssd_intra_chunk_bwd_cuda, *ins,
+                                        *cot, H, route=1, per=per)
+                ms = time_cuda(run, iters=20)
+                split = bwd_device_split(run, reps=10)
+                rows.append({"G": G, "per": per, "ms": ms, "device": split,
+                             "chosen": K.bwd_plan(G, H, L)[0] == per})
+                print(f"   plan sweep: G={G}, {H} heads, {per} a group: "
+                      f"{ms * 1e3:.1f} us by events; on the card "
+                      f"{device_split_text(split)}"
+                      + ("  (bwd_plan's choice)" if rows[-1]["chosen"]
+                         else ""))
+            torch.cuda.empty_cache()
+        return rows
+
+    def bwd_route_sweep(self):
+        """Both routes of C's backward, forced, at L = 8 to 64 (route 2
+        where its shared memory fits) with ``ssm_lm``'s head count and
+        widths (the tokens of its local step) and Mamba2-370M's (the
+        admission prompt's 512 tokens), each held to the plain backward
+        and timed by CUDA events over 20 calls and on the card (the
+        profiler's kernel time, since at these shapes the events time the
+        host's call): the crossover that ``ssd_scan.SMALL_MAX_WORK``
+        encodes, in heads L (L + N) P, from the card's times."""
+        torch = self.torch
+        from repro_torch.fl.tasks import LM_SEQ_LEN, get_task
+        from repro_torch.kernels import ssd_scan as K
+        lm, full = get_task("ssm_lm").model_cfg, self.ssm_cfg
+        rows = []
+        for (H, P, N, tokens) in (
+                (lm.ssm_heads, lm.ssm_head_dim, lm.ssm_state,
+                 40 * LM_SEQ_LEN),
+                (full.ssm_heads, full.ssm_head_dim, full.ssm_state, 512)):
+            for L in (8, 16, 32, 64):
+                G = tokens // L * H
+                ins, cot = self.bwd_inputs(G, H, L, P, N, 80 + L,
+                                           torch.float32)
+                want = K._bwd_plain_f32(*ins, *cot, H)
+                ms = {}
+                # as phase 27's cases: ssm_lm's widths at L = 8 within
+                # SSD_TOL, Mamba2-370M's and longer chunks within
+                # SSD_TOL_FULL
+                tol = SSD_TOL if H == lm.ssm_heads and L <= 8 else \
+                    SSD_TOL_FULL
+                for route in (1, 2):
+                    if route == 2 and K.small_smem_bytes(L, P, N) > K.SMEM_MAX:
+                        continue
+                    run = functools.partial(K._ssd_intra_chunk_bwd_cuda,
+                                            *ins, *cot, H, route=route)
+                    self.c_bwd_check(run(), want, torch.float32, tol,
+                                     f"the sweep, route {route}, G={G}, "
+                                     f"{H} heads, L={L}")
+                    split = bwd_device_split(run, reps=10)
+                    ms[route] = (time_cuda(run, iters=20), None if split is
+                                 None else sum(split["ms"].values()))
+                work = H * L * (L + N) * P
+                rows.append({"heads": H, "L": L, "P": P, "N": N, "G": G,
+                             "work": work, "route_ms": ms,
+                             "chosen": K.bwd_route(H, L, P, N)})
+                print(f"   sweep: G={G}, {H} heads, L={L}, P={P}, N={N}, "
+                      f"work {work}: " + ", ".join(
+                          f"route {r} {t * 1e3:.1f} us by events, "
+                          + ("not recorded" if d is None else
+                             f"{d * 1e3:.1f} us") + " on the card"
+                          for r, (t, d) in ms.items())
+                      + f"; the rule picks route {K.bwd_route(H, L, P, N)} "
+                      f"[{self.card()}]")
+        return rows
 
     def kernel_c_bwd(self, B):
         """Kernel C's backward (``csrc/ssd_scan_bwd.cu``) against its plain
@@ -2844,6 +3022,9 @@ class Smoke:
             head = shapes["phase 37's round"]
             k.update({key: head[key] for key in (
                 "ms", "plain_ms", "before_ms", "bound_ms", "bound_by")})
+            k["host_us"] = self.c_bwd_host(B)
+            k["route_sweep"] = self.bwd_route_sweep()
+            k["plan_sweep"] = self.bwd_plan_sweep()
         print("   (the backward of the JAX package's Pallas call is XLA's "
               "autodiff of its plain ssd_chunked; no single PyTorch call "
               "computes it: library_ms is null)")
@@ -5220,6 +5401,88 @@ def _leaves(tree):
             yield v
 
 
+def bwd_host_steps(ins, cot, heads, reps: int = 1000):
+    """Host microseconds per call of kernel C's backward at the shape of
+    ``ins`` (CUDA tensors), each over ``reps`` calls synchronized only at
+    the ends: the kernel's wrapper ``_ssd_intra_chunk_bwd_cuda``, the
+    Function's route ``_intra_chunk_bwd``, and the steps a call is made
+    of, as far as the port of this process has them: an allocation,
+    reading a tensor's address, checking contiguity and dtype, the
+    stream, the launcher's C call with nothing to launch (G = 0), an
+    ``as_strided`` view."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as K
+    xb = ins[0]
+
+    def us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    lib = build.library()
+    out = {"wrapper": us(lambda: K._ssd_intra_chunk_bwd_cuda(*ins, *cot,
+                                                            heads)),
+           "Function's route": us(lambda: K._intra_chunk_bwd(*ins, *cot,
+                                                            heads)),
+           "torch.empty": us(lambda: torch.empty(4096, device=xb.device)),
+           "data_ptr": us(xb.data_ptr),
+           "is_contiguous": us(xb.is_contiguous),
+           ".to(f32), a no-op": us(lambda: xb.to(torch.float32)),
+           "current_stream().cuda_stream": us(
+               lambda: torch.cuda.current_stream(xb.device).cuda_stream),
+           "as_strided": us(lambda: xb.as_strided((4, 4), (4, 1), 0)),
+           "view": us(lambda: xb.view(-1)),
+           "split_with_sizes (4)": us(
+               lambda: xb.view(-1).split_with_sizes((16, 16, 16, xb.numel()
+                                                     - 48))),
+           "unbind (2)": us(lambda: xb[:2].unbind(0)),
+           "torch.empty, shaped": us(
+               lambda: torch.empty((64, 8, 16), device=xb.device))}
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        out["_cuda_getCurrentRawStream"] = us(lambda: raw(xb.device.index))
+    if hasattr(K, "bwd_layout"):
+        args = (ctypes.c_longlong * 27)()
+        args[13:21] = (0, 0, 1, 8, 16, 8, 2, 0)
+        out["C call, one array (G = 0)"] = us(
+            lambda: lib.ssd_scan_bwd_run(args))
+        out["bwd_layout (cached)"] = us(
+            lambda: K.bwd_layout(320, 4, 8, 16, 8, False))
+    else:
+        vp = [None] * 7
+        out["C call, 24 arguments (G = 0)"] = us(
+            lambda: lib.ssd_scan_bwd_launch(*vp, 0, 0, 1, 8, 16, 8, 1,
+                                            *([None] * 9), None))
+    return out
+
+
+def profile_c_bwd(root: str) -> int:
+    """``--profile-c-bwd``: ``bwd_host_steps`` at ``ssm_lm``'s local-step
+    shape with the port under ``root``."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.tasks import LM_SEQ_LEN, get_task
+    lm = get_task("ssm_lm").model_cfg
+    H, L, P, N = lm.ssm_heads, lm.ssm_chunk, lm.ssm_head_dim, lm.ssm_state
+    G = 40 * (LM_SEQ_LEN // L) * H
+    rng = np.random.RandomState(0)
+    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+    ins = [t(G, L, P), t(G // H, L, N), t(G // H, L, N),
+           torch.cumsum(-t(G, 1, L).abs() * 0.05, -1)]
+    cot = [t(G, L, P), t(G, N, P), t(G, 1)]
+    steps = bwd_host_steps(ins, cot, H)
+    print(f"C's backward at ssm_lm's shape with {root}'s port, host time per "
+          f"call over 1,000 calls (us): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in steps.items()))
+    print(nvidia_smi())
+    return 0
+
+
 def profile_b(root: str) -> int:
     """Kernel B's block channel on the CNN's 8 leaves (seeded), with the
     port of the checkout at ``root`` (this one, or an earlier one unpacked
@@ -5377,7 +5640,8 @@ def main() -> int:
     if not torch.cuda.is_available() and not rehearse:
         die("no CUDA device is available: this script runs on the card")
     root = ROOT
-    profile = sys.argv[1:2] in (["--profile-b"], ["--profile-channel"])
+    profile = sys.argv[1:2] in (["--profile-b"], ["--profile-channel"],
+                                ["--profile-c-bwd"])
     if profile and len(sys.argv) > 2:
         root = os.path.abspath(sys.argv[2])
     sys.path.insert(0, os.path.join(root, "src"))
@@ -5390,6 +5654,8 @@ def main() -> int:
         return profile_b(root)
     if sys.argv[1:2] == ["--profile-channel"]:
         return profile_channel(root)
+    if sys.argv[1:2] == ["--profile-c-bwd"]:
+        return profile_c_bwd(root)
     if rehearse:
         return world_rank()
     if sys.argv[1:2] == ["--world"]:

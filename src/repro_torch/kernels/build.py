@@ -140,8 +140,10 @@ def library() -> ctypes.CDLL:
     lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                     i32, vp, vp, vp, vp]
     lib.ssd_scan_launch.restype = i32
-    lib.ssd_scan_bwd_launch.argtypes = [vp] * 7 + [i32] * 7 + [vp] * 10
-    lib.ssd_scan_bwd_launch.restype = i32
+    lib.ssd_scan_bwd_run.argtypes = [ctypes.POINTER(i64)]
+    lib.ssd_scan_bwd_run.restype = i32
+    lib.ssd_scan_bwd_attrs.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.ssd_scan_bwd_attrs.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

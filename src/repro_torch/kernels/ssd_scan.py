@@ -24,12 +24,15 @@ Its gradient, the vector-Jacobian product of the step, ships twice too:
 
 * :func:`ssd_intra_chunk_bwd_plain` -- plain PyTorch, the formulas
   written out (no autograd);
-* the CUDA kernel ``csrc/ssd_scan_bwd.cu``: f32 FMAs on tiles in shared
-  memory, one CTA per (batch, chunk, 32-column tile, head group) for
-  ``dX``, ``dB`` and the column terms of ``dcum``, then one CTA per
-  (batch, chunk, 32-row tile) for ``dC``, the head groups' sums and
-  ``dcum``; no float atomics, so the gradient is the same from run to
-  run.
+* the CUDA kernel ``csrc/ssd_scan_bwd.cu``, on one of two routes picked
+  by shape (:func:`bwd_route`).  Route 1 runs every product on the
+  tensor cores with split TF32, as the forward: one CTA per (batch,
+  chunk, 64-column tile, head group) for ``dX``, the heads' ``dCB`` and
+  the column terms of ``dcum``, then one CTA per (batch, chunk, 64-row
+  tile, ``dC`` or ``dB``) for ``dC``, ``dB`` and ``dcum``.  Route 2, for
+  small chunks, is one launch of one CTA per (batch, chunk) owning all
+  its heads, f32 FMAs on shared memory sized to the shape.  Neither uses
+  float atomics, so the gradient is the same from run to run.
 
 :func:`ssd_intra_chunk` picks by device: the kernel for CUDA tensors (a
 build or launch failure raises), the plain version for CPU tensors (and
@@ -45,10 +48,14 @@ full-sequence SSD around the step, the counterpart of the JAX package's
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional, Tuple
+import threading
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import build
 
 MAX_L, MAX_P, MAX_N = 256, 64, 128
 
@@ -211,13 +218,62 @@ def ssd_intra_chunk_bwd_plain(xb: torch.Tensor, b: torch.Tensor,
     return dx, db.to(b.dtype), dc.to(c.dtype), dcum
 
 
+# Kernel C's backward takes one of two routes, by shape (bwd_route).
+# Route 1, full chunks: split-TF32 tensor-core products; C Bᵀ once per
+# pair of 64-row tiles, then one CTA per (batch, chunk, 64-column tile,
+# head group), the head groups' sums, and one CTA per 64-row tile for dC,
+# dB and dcum.  Route 2, small chunks: one launch, one CTA per (batch,
+# chunk) owning all its heads, f32 FMAs on shared memory sized to (L, P,
+# N) and a batch of heads.
+BWD_TILE = 64         # columns (rows) of a route-1 CTA's tile
+BWD_CTAS = 132        # route 1's first pass aims for a CTA on each SM
+SMEM_MAX = 232_448    # bytes of shared memory an H100 CTA can have
+# route 2 takes a shape whose work for one CTA, heads L (L + N) P, is at
+# most this and whose shared memory fits: phase 27's sweep in
+# chip_smoke.py put the crossover on the card between ssm_lm's widths at
+# L = 16 (24,576; route 2 the faster) and L = 32 (81,920; route 1)
+SMALL_MAX_WORK = 1 << 15
+# route 2 runs as many heads at once as fit in this much shared memory,
+# so that several CTAs share an SM
+SMALL_SMEM_TARGET = 48 * 1024
+
+
+def small_smem_bytes(L: int, P: int, N: int, hb: int = 1) -> int:
+    """Route 2's shared memory for one (batch, chunk) running ``hb`` heads
+    at once: B, C, C Bᵀ, the heads' dCB and dB term, and each head's X,
+    gy, gS, cum, d, d r, W, Q, dW ∘ M and X gSᵀ, each part rounded to 16
+    bytes (``SmallLayout`` in ``csrc/ssd_scan_bwd.cu``)."""
+    r4 = lambda n: -(-n // 4) * 4
+    head = (2 * r4(L * P) + r4(N * P) + 3 * r4(L) + 3 * r4(L * L)
+            + r4(L * N))
+    return 4 * (3 * r4(L * N) + 2 * r4(L * L) + hb * head)
+
+
+def small_heads(heads: int, L: int, P: int, N: int) -> int:
+    """Route 2's heads at once: as many as fit ``SMALL_SMEM_TARGET`` (at
+    least one)."""
+    common = small_smem_bytes(L, P, N, 0)
+    head = small_smem_bytes(L, P, N, 1) - common
+    return max(1, min(heads, (SMALL_SMEM_TARGET - common) // head))
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_route(heads: int, L: int, P: int, N: int) -> int:
+    """The backward's route for a shape: 2 (small chunks) where one CTA's
+    f32 work, heads L (L + N) P, is at most ``SMALL_MAX_WORK`` and its
+    shared memory fits, else 1 (the tensor cores)."""
+    small = (heads * L * (L + N) * P <= SMALL_MAX_WORK
+             and small_smem_bytes(L, P, N) <= SMEM_MAX)
+    return 2 if small else 1
+
+
 @functools.lru_cache(maxsize=256)
 def bwd_plan(G: int, heads: int, L: int) -> Tuple[int, int]:
-    """The backward kernel's head groups: (heads a group, groups).  At
-    least as many groups as give its first pass a CTA for each of an
-    H100's 132 SMs, where the heads allow, and groups of equal size (a
-    divisor of ``heads``): the group's CTAs are the longest, and CB is
-    formed once a group.  Shape-only (the C launcher takes ``per``)."""
+    """Route 1's head groups: (heads a group, groups).  At least as many
+    groups as give its first pass a CTA for each of an H100's 132 SMs,
+    where the heads allow, and groups of equal size (a divisor of
+    ``heads``): a group's C Bᵀ is formed once, and its dCB and dB term
+    are summed in the CTA.  Shape-only."""
     tiles = -(-L // BWD_TILE)
     ctas = (G // heads) * tiles
     want = max(1, min(heads, -(-BWD_CTAS // max(ctas, 1))))
@@ -226,53 +282,114 @@ def bwd_plan(G: int, heads: int, L: int) -> Tuple[int, int]:
     return per, heads // per
 
 
-BWD_TILE = 32         # columns (rows) of a CTA's tile in the backward
-BWD_CTAS = 132        # CTAs the first pass aims for: one per SM (each
-                      # holds 192 KB of shared memory)
+class BwdLayout(NamedTuple):
+    """One backward call's buffers, in floats: where dxb, db, dc and dcum
+    start in the output buffer and its size, the workspace's size (0 on
+    route 2), and the launcher's arguments after the pointers and the
+    stream (``ssd_scan_bwd_run`` in ``csrc/ssd_scan_bwd.cu``)."""
+    dx: int
+    db: int
+    dc: int
+    dcum: int
+    out_floats: int
+    ws_floats: int
+    args: Tuple[int, ...]
 
 
-def _ssd_intra_chunk_bwd_cuda(xb, b, c, cum, gy, gs, ga, heads):
-    """The backward kernel on contiguous CUDA tensors (gy, gs, ga f32):
-    the gradients of b and c in f32."""
-    from repro_torch.kernels.build import check, library
+def _parts(sizes):
+    """Offsets of consecutive parts of ``sizes`` floats, each starting
+    16-byte aligned, and their total."""
+    offs, at = [], 0
+    for n in sizes:
+        offs.append(at)
+        at += -(-n // 4) * 4
+    return offs, at
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_layout(G: int, heads: int, L: int, P: int, N: int, bf16: bool,
+               route: Optional[int] = None, per: Optional[int] = None
+               ) -> BwdLayout:
+    """The buffers of a backward call at one shape, on ``route`` (by
+    default ``bwd_route``'s) with ``per`` heads a group on route 1 (by
+    default ``bwd_plan``'s).  Route 1's workspace: each head group's dCB
+    and dB term, rowsum(Q) over each column tile, the column terms of
+    dcum, the sums of d r over each column tile, and C Bᵀ of each pair
+    of row tiles.  On route 2 ``per`` is the heads run at once (by
+    default ``small_heads``'s)."""
+    gb = G // heads
+    route = route or bwd_route(heads, L, P, N)
+    (dx, db, dc, dcum), out = _parts((G * L * P, gb * L * N, gb * L * N,
+                                      G * L))
+    if route == 2:
+        per = per or small_heads(heads, L, P, N)
+        ws, offs = 0, (0,) * 6
+    else:
+        per = per or bwd_plan(G, heads, L)[0]
+        groups, tiles = heads // per, -(-L // BWD_TILE)
+        Lp, Np = tiles * BWD_TILE, -(-N // BWD_TILE) * BWD_TILE
+        offs, ws = _parts((groups * gb * Lp * Lp, groups * gb * Lp * Np,
+                           G * tiles * Lp, G * Lp, G * tiles,
+                           gb * tiles * tiles * BWD_TILE ** 2))
+    return BwdLayout(dx, db, dc, dcum, out, ws,
+                     (int(bf16), G, heads, L, P, N, route, per, *offs))
+
+
+_LOCAL = threading.local()
+
+
+def _current_stream(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# the current CUDA stream of a device (by index) as an integer handle; the
+# raw form costs a tenth of ``current_stream`` (phase 27's host steps)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _current_stream)
+
+
+def _ssd_intra_chunk_bwd_cuda(xb, b, c, cum, gy, gs, ga, heads,
+                              route=None, per=None):
+    """The backward kernel on contiguous, 16-byte-aligned CUDA tensors (gy,
+    gs, ga f32): the gradients of b and c in f32.  One allocation for the
+    outputs and, on route 1, one for the workspace; the launcher's 27
+    arguments go as one array.  ``route`` and ``per`` force a route and
+    route 1's head groups (phase 27's sweep)."""
     global BWD_LAUNCHES
     G, L, P = xb.shape
     N = b.shape[-1]
-    gb = G // heads
+    lay = bwd_layout(G, heads, L, P, N, b.dtype == torch.bfloat16, route,
+                     per)
     dev = xb.device
-    per, groups = bwd_plan(G, heads, L)
-    tiles = -(-L // BWD_TILE)
-    f32 = torch.float32
-    dx = torch.empty((G, L, P), dtype=f32, device=dev)
-    dbc = torch.empty((2, gb, L, N), dtype=f32, device=dev)
-    dcum = torch.empty((G, 1, L), dtype=f32, device=dev)
-    # the first pass's partial results, in one allocation: dCB and dB of
-    # each head group, rowsum(Q) over each column tile, the column terms
-    # of dcum and the sums of d r over each column tile
-    sizes = (groups * gb * L * L, groups * gb * L * N, G * tiles * L, G * L,
-             G * tiles)
-    ws = torch.empty(sum(-(-n // 4) * 4 for n in sizes), dtype=f32,
-                     device=dev)
-    parts, at = [], ws.data_ptr()
-    for n in sizes:                  # each part 16-byte aligned
-        parts.append(at)
-        at += 4 * (-(-n // 4) * 4)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library().ssd_scan_bwd_launch(
-        xb.data_ptr(), b.data_ptr(), c.data_ptr(), cum.data_ptr(),
-        gy.data_ptr(), gs.data_ptr(), ga.data_ptr(),
-        int(b.dtype == torch.bfloat16), G, heads, L, P, N, per,
-        dx.data_ptr(), dbc[0].data_ptr(), dbc[1].data_ptr(),
-        dcum.data_ptr(), *parts, stream)
-    check(err, "ssd_scan backward kernel")
+    out = torch.empty(lay.out_floats, dtype=torch.float32, device=dev)
+    ws = torch.empty(lay.ws_floats, dtype=torch.float32, device=dev) \
+        if lay.ws_floats else None
+    args = getattr(_LOCAL, "args", None)
+    if args is None:
+        args = _LOCAL.args = (ctypes.c_longlong * 27)()
+    o = out.data_ptr()
+    args[:] = (xb.data_ptr(), b.data_ptr(), c.data_ptr(), cum.data_ptr(),
+               gy.data_ptr(), gs.data_ptr(), ga.data_ptr(), o + 4 * lay.dx,
+               o + 4 * lay.db, o + 4 * lay.dc, o + 4 * lay.dcum,
+               0 if ws is None else ws.data_ptr(), _raw_stream(dev.index),
+               *lay.args)
+    build.check(build.library().ssd_scan_bwd_run(args),
+                "ssd_scan backward kernel")
     BWD_LAUNCHES += 1
-    return dx, dbc[0], dbc[1], dcum
+    gb = G // heads
+    return (out.as_strided((G, L, P), (L * P, P, 1), lay.dx),
+            out.as_strided((gb, L, N), (L * N, N, 1), lay.db),
+            out.as_strided((gb, L, N), (L * N, N, 1), lay.dc),
+            out.as_strided((G, 1, L), (L, L, 1), lay.dcum))
 
 
-def _dense(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte-aligned address (the backward kernel
-    reads 16 bytes at a time; a view may start anywhere)."""
-    t = t.contiguous()
+def _ready(t: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``t`` in ``dtype`` (if given), contiguous at a 16-byte-aligned
+    address (the backward kernel reads 16 bytes at a time; a view may
+    start anywhere); ``t`` itself where it already is."""
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    if not t.is_contiguous():
+        t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -282,10 +399,11 @@ def _intra_chunk_bwd(xb, b, c, cum, gy, gs, ga, heads):
     if xb.device.type == "cuda":
         f32 = torch.float32
         dx, db, dc, dcum = _ssd_intra_chunk_bwd_cuda(
-            _dense(xb), _dense(b), _dense(c), _dense(cum),
-            _dense(gy.to(f32)), _dense(gs.to(f32)), _dense(ga.to(f32)),
-            heads)
-        return dx, db.to(b.dtype), dc.to(c.dtype), dcum
+            _ready(xb), _ready(b), _ready(c), _ready(cum), _ready(gy, f32),
+            _ready(gs, f32), _ready(ga, f32), heads)
+        if b.dtype != f32:
+            db, dc = db.to(b.dtype), dc.to(c.dtype)
+        return dx, db, dc, dcum
     if xb.device.type in ("cpu", "meta"):
         return ssd_intra_chunk_bwd_plain(xb, b, c, cum, gy, gs, ga, heads)
     raise ValueError(f"ssd_intra_chunk's backward runs on cuda or cpu, not "

@@ -292,14 +292,102 @@ def test_backward_on_another_device_raises():
                                        (256, 32, 256), (16, 2, 256),
                                        (3, 3, 12), (1024, 128, 256)])
 def test_bwd_plan_covers_every_head_once(G, heads, L):
-    """The kernel's head groups: equal groups covering every head once,
-    and enough of them for a CTA on each SM where heads allow."""
+    """Route 1's head groups: equal groups covering every head once, and
+    enough of them for a CTA on each SM where heads allow."""
     per, groups = K.bwd_plan(G, heads, L)
     assert 1 <= per <= heads and per * groups == heads
+    assert sorted(h for g in range(groups) for h in
+                  range(g * per, (g + 1) * per)) == list(range(heads))
     tiles = -(-L // K.BWD_TILE)
     ctas = (G // heads) * tiles
     if ctas * heads >= K.BWD_CTAS:
         assert ctas * groups >= K.BWD_CTAS or groups == heads
+
+
+@pytest.mark.parametrize("heads,L,P,N,route", [
+    (4, 8, 16, 8, 2),           # ssm_lm's local step
+    (4, 16, 16, 8, 2),
+    (4, 32, 16, 8, 1),          # past the crossover
+    (32, 256, 64, 128, 1),      # Mamba2-370M's chunk
+    (32, 8, 64, 128, 1),        # its widths at a small chunk: work too large
+    (128, 256, 64, 16, 1),      # Jamba's
+    (1, 64, 64, 128, 1),        # route 2's shared memory would not fit
+    (1, 1, 4, 4, 2)])
+def test_bwd_route_picks_by_shape(heads, L, P, N, route):
+    """The route depends on the shape alone: small chunks (one CTA's work
+    at most ``SMALL_MAX_WORK`` and its shared memory within an SM's) take
+    route 2, everything else the tensor cores."""
+    assert K.bwd_route(heads, L, P, N) == route
+    work = heads * L * (L + N) * P
+    fits = K.small_smem_bytes(L, P, N) <= K.SMEM_MAX
+    assert (route == 2) == (work <= K.SMALL_MAX_WORK and fits)
+
+
+def test_bwd_route_crossover_is_the_work_bound():
+    """Just below and above ``SMALL_MAX_WORK`` the route changes, at a
+    width where route 2's shared memory fits on both sides."""
+    P, N, L = 16, 8, 8
+    per_head = L * (L + N) * P
+    h = K.SMALL_MAX_WORK // per_head
+    assert K.bwd_route(h, L, P, N) == 2
+    assert K.bwd_route(h + 1, L, P, N) == 1
+
+
+@pytest.mark.parametrize("L,P,N", [(8, 16, 8), (1, 4, 4), (33, 64, 128),
+                                   (64, 64, 128)])
+def test_small_smem_is_sized_to_the_shape(L, P, N):
+    """Route 2's shared memory counts each of its parts at the launch's
+    shape and batch of heads, rounded to 16 bytes; at ``ssm_lm``'s shape
+    its 4 heads run at once in little enough for several CTAs on an SM
+    (the 80 (batch, chunk) groups of a step in one wave); at Mamba2's
+    widths and L = 64 not even one head fits."""
+    r4 = lambda n: -(-n // 4) * 4
+    common = [L * N] * 3 + [L * L] * 2
+    head = [L * P] * 2 + [N * P] + [L] * 3 + [L * L] * 3 + [L * N]
+    for hb in (1, 3):
+        want = sum(r4(n) for n in common) + hb * sum(r4(n) for n in head)
+        assert K.small_smem_bytes(L, P, N, hb) == 4 * want
+    hb = K.small_heads(4, L, P, N)
+    assert 1 <= hb <= 4
+    if hb > 1 or K.small_smem_bytes(L, P, N, 1) <= K.SMALL_SMEM_TARGET:
+        assert K.small_smem_bytes(L, P, N, hb) <= K.SMALL_SMEM_TARGET
+    if (L, P, N) == (8, 16, 8):
+        assert hb == 4 and K.small_smem_bytes(L, P, N, hb) * 4 <= K.SMEM_MAX
+    if (L, P, N) == (64, 64, 128):
+        assert K.small_smem_bytes(L, P, N) > K.SMEM_MAX
+
+
+@pytest.mark.parametrize("G,heads,L,P,N,bf16", [
+    (320, 4, 8, 16, 8, False), (64, 32, 256, 64, 128, False),
+    (256, 32, 256, 64, 128, True), (16, 2, 200, 64, 128, False),
+    (6, 3, 65, 16, 8, True), (1024, 128, 256, 64, 16, False)])
+def test_bwd_layout_parts_are_aligned_and_disjoint(G, heads, L, P, N, bf16):
+    """The call's buffers: the four outputs and, on route 1, the six
+    workspace parts each start 16-byte aligned, hold their shape's floats
+    and do not overlap; the launcher's 14 shape arguments say the route
+    and the head groups."""
+    gb = G // heads
+    for route in (1, 2):
+        lay = K.bwd_layout(G, heads, L, P, N, bf16, route)
+        outs = [(lay.dx, G * L * P), (lay.db, gb * L * N),
+                (lay.dc, gb * L * N), (lay.dcum, G * L)]
+        for (a, n), (b, _) in zip(outs, outs[1:] + [(lay.out_floats, 0)]):
+            assert a % 4 == 0 and a + n <= b
+        flag, g, h, l, p, n, r, per, *offs = lay.args
+        assert (flag, g, h, l, p, n, r) == (int(bf16), G, heads, L, P, N,
+                                            route)
+        if route == 2:
+            assert lay.ws_floats == 0 and per == K.small_heads(heads, L, P, N)
+            continue
+        assert per == K.bwd_plan(G, heads, L)[0]
+        groups, tiles = heads // per, -(-L // K.BWD_TILE)
+        Lp, Np = tiles * 64, -(-N // 64) * 64
+        sizes = [groups * gb * Lp * Lp, groups * gb * Lp * Np,
+                 G * tiles * Lp, G * Lp, G * tiles,
+                 gb * tiles * tiles * 64 * 64]
+        ends = offs[1:] + [lay.ws_floats]
+        for a, n, b in zip(offs, sizes, ends):
+            assert a % 4 == 0 and a + n <= b
 
 
 # ----------------------------------------------------------------------
@@ -315,29 +403,52 @@ def card():
     return torch.device("cuda")
 
 
+# the card's cases: the paths' shapes, then both routes and their
+# boundaries (L of 1 to 256 around the 64-row tiles, P 16 and 64, N 8, 16
+# and 128, 1 to 32 heads, f32 and bf16)
+CARD_CASES = [
+    (320, 4, 8, 16, 8, torch.float32), (64, 32, 256, 64, 128, torch.float32),
+    (16, 2, 256, 64, 128, torch.float32), (8, 1, 200, 64, 128, torch.float32),
+    (64, 32, 256, 64, 16, torch.bfloat16), (6, 3, 12, 16, 8, torch.bfloat16)]
+CARD_CASES += [
+    (G, heads, L, P, N, dtype)
+    for i, L in enumerate((1, 8, 31, 32, 33, 63, 64, 65, 200, 256))
+    for G, heads, P, N, dtype in (
+        (8 * (1, 2, 4, 32)[i % 4], (1, 2, 4, 32)[i % 4], (16, 64)[i % 2],
+         (8, 16, 128)[i % 3], (torch.float32, torch.bfloat16)[i % 2]),
+        (4 * (4, 1, 2)[i % 3], (4, 1, 2)[i % 3], (64, 16)[i % 2],
+         (128, 8, 16)[i % 3], (torch.bfloat16, torch.float32)[i % 2]))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,heads,L,P,N,dtype", [
-    (320, 4, 8, 16, 8, torch.float32), (64, 32, 256, 64, 128,
-                                        torch.float32),
-    (16, 2, 256, 64, 128, torch.float32), (8, 1, 200, 64, 128,
-                                           torch.float32),
-    (64, 32, 256, 64, 16, torch.bfloat16), (6, 3, 12, 16, 8,
-                                            torch.bfloat16)])
+@pytest.mark.parametrize("route", [None, 1, 2])
+@pytest.mark.parametrize("G,heads,L,P,N,dtype", CARD_CASES)
 def test_backward_kernel_matches_plain_on_card(card, G, heads, L, P, N,
-                                               dtype):
+                                               dtype, route):
     """The CUDA backward against the plain backward on the same card
-    tensors (1e-5 at ``ssm_lm``'s shape, 1e-4 at full width, as phase 27),
-    launched once, the plain backward not counted as a path's."""
+    tensors (1e-5 at L <= 8, 1e-4 above, as phase 27), launched once, the
+    plain backward not counted as a path's: on the route the shape picks
+    (through the Function's route) and on each route forced, route 2
+    where its shared memory fits; the same bits on a second launch."""
+    if route == 2 and K.small_smem_bytes(L, P, N) > K.SMEM_MAX:
+        pytest.skip("route 2's shared memory does not fit this shape")
     ins, cot = _cells(G, heads, L, P, N, 31, dtype)
     ins = [t.to(card) for t in ins]
     cot = [t.to(card) for t in cot]
+
+    def run():
+        if route is None:
+            return K._intra_chunk_bwd(*ins, *cot, heads)
+        dx, db, dc, dcum = K._ssd_intra_chunk_bwd_cuda(*ins, *cot, heads,
+                                                       route=route)
+        return dx, db.to(dtype), dc.to(dtype), dcum
     before = K.BWD_LAUNCHES
-    got = K._intra_chunk_bwd(*ins, *cot, heads)
+    got = run()
     assert K.BWD_LAUNCHES == before + 1
     want = K.ssd_intra_chunk_bwd_plain(*ins, *cot, heads)
     torch.cuda.synchronize()
     tol = 1e-5 if L <= 8 else 1e-4
     _close_grads(got, want, bf16=dtype == torch.bfloat16, tol=tol)
-    again = K._intra_chunk_bwd(*ins, *cot, heads)
+    again = run()
     for a, b in zip(got, again):
         assert torch.equal(a, b), "the backward is not the same run to run"
