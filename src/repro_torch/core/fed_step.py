@@ -66,6 +66,7 @@ from repro_torch.sharding.rules import (Rules, active_rules,
                                         axis_group, block_specs,
                                         gather_params, local_block,
                                         use_rules)
+from repro_torch.utils.spans import span
 from repro_torch.utils.tree import leaves, paths, tree_map, unflatten
 
 __all__ = ["FedConfig", "approx_topk_threshold", "compress_delta",
@@ -158,10 +159,13 @@ def _group_local_train(w0: Any, batches: Any, loss_fn: Callable,
     grad_and_value = torch.func.grad_and_value(loss_fn)
     w, losses = w0, []
     for e in range(fed.local_steps):
-        grads, loss = grad_and_value(w, tree_map(lambda x: x[e], batches))
-        w = tree_map(
-            lambda p, g, a0: (p - fed.lr * (g + fed.mu * (p - a0))).to(
-                p.dtype), w, grads, w0)
+        with span("fed.grad"):
+            grads, loss = grad_and_value(w, tree_map(lambda x: x[e],
+                                                     batches))
+        with span("fed.prox"):
+            w = tree_map(
+                lambda p, g, a0: (p - fed.lr * (g + fed.mu * (p - a0))).to(
+                    p.dtype), w, grads, w0)
         losses.append(loss)
     return w, torch.stack(losses).mean()
 
@@ -192,6 +196,10 @@ def make_fed_train_step(loss_fn: Callable, fed: FedConfig) -> Callable:
         in_dims=(None, 0))
 
     def fed_round(params, batch, staleness):
+        with span("fed.round", params):
+            return _round(params, batch, staleness)
+
+    def _round(params, batch, staleness):
         def split(x, g=G):  # (B, ...) -> (g, E, B/(g*E), ...), group-major
             return x.reshape((g, E, x.shape[0] // (g * E)) + x.shape[1:])
 
@@ -200,21 +208,32 @@ def make_fed_train_step(loss_fn: Callable, fed: FedConfig) -> Callable:
             return _mesh_round(local, params, batch, split, staleness, fed,
                                rules)
         w_local, losses = local(params, tree_map(split, batch))
+        with span("fed.combine"):
+            new, metrics = _combine(w_local, params, staleness, fed)
+        return new, {"local_loss": losses.mean(), **metrics}
 
-        delta = tree_map(lambda wl, w0: wl - w0[None], w_local, params)
-        device = leaves(params)[0].device
-        stale = torch.as_tensor(staleness, device=device).to(torch.float32)
-        # Eqs. 6-7 over equal-sized groups (n_c == 1)
-        wts = stacked_staleness_weights(stale, torch.ones_like(stale),
-                                        fed.a)
-        a_t = mixing_alpha(stale, fed.alpha, fed.a)
+    return fed_round
 
-        names = paths(params)
-        w0s, ds = leaves(params), leaves(delta)
-        if fed.schedule == "gather_q":
-            # f32 rows, so the channel dequantizes to f32 whatever the
-            # params' dtype (the JAX package's compress_delta casts)
-            rows = [d.reshape(G, -1).to(torch.float32) for d in ds]
+
+def _combine(w_local, params, staleness, fed: FedConfig):
+    """The unsharded branch's combine: each group's delta, the staleness
+    weights (Eqs. 6-10), ``gather_q``'s channel or the dense reduce ->
+    (the new params, the round's ``alpha_t`` and ``delta_norm``)."""
+    G = fed.n_groups
+    delta = tree_map(lambda wl, w0: wl - w0[None], w_local, params)
+    device = leaves(params)[0].device
+    stale = torch.as_tensor(staleness, device=device).to(torch.float32)
+    # Eqs. 6-7 over equal-sized groups (n_c == 1)
+    wts = stacked_staleness_weights(stale, torch.ones_like(stale), fed.a)
+    a_t = mixing_alpha(stale, fed.alpha, fed.a)
+
+    names = paths(params)
+    w0s, ds = leaves(params), leaves(delta)
+    if fed.schedule == "gather_q":
+        # f32 rows, so the channel dequantizes to f32 whatever the
+        # params' dtype (the JAX package's compress_delta casts)
+        rows = [d.reshape(G, -1).to(torch.float32) for d in ds]
+        with span("fed.compress"):
             if fed.p_s < 1.0:
                 dqs = ops.threshold_channel_leaves(
                     rows, fed.p_s, fed.p_q, fed.threshold_iters)
@@ -223,17 +242,14 @@ def make_fed_train_step(loss_fn: Callable, fed: FedConfig) -> Callable:
                 dqs = [torch.stack([decompress_delta(
                     *compress_delta(r, fed), fed, torch.float32)
                     for r in rs]) for rs in rows]
-            new = [(w0 + a_t * torch.einsum("gn,g->n", dq, wts).reshape(
-                w0.shape)).to(w0.dtype) for dq, w0 in zip(dqs, w0s)]
-        else:   # psum / gather_f32 without a mesh: dense weighted reduce
-            new = [(w0 + a_t * torch.einsum(
-                "g...,g->...", d.to(torch.float32), wts)).to(w0.dtype)
-                for d, w0 in zip(ds, w0s)]
-        metrics = {"local_loss": losses.mean(), "alpha_t": a_t,
-                   "delta_norm": _tree_norm(delta)}
-        return unflatten(names, new), metrics
-
-    return fed_round
+        new = [(w0 + a_t * torch.einsum("gn,g->n", dq, wts).reshape(
+            w0.shape)).to(w0.dtype) for dq, w0 in zip(dqs, w0s)]
+    else:   # psum / gather_f32 without a mesh: dense weighted reduce
+        new = [(w0 + a_t * torch.einsum(
+            "g...,g->...", d.to(torch.float32), wts)).to(w0.dtype)
+            for d, w0 in zip(ds, w0s)]
+    return unflatten(names, new), {"alpha_t": a_t,
+                                   "delta_norm": _tree_norm(delta)}
 
 
 # ----------------------------------------------------------------------
@@ -270,52 +286,59 @@ def _mesh_round(local, params, batch, split, staleness, fed: FedConfig,
         whole = gather_params(params, rules)
         with use_rules(_local_rules(rules, fed)):
             w_local, losses = local(whole, gb)
-        # this rank's block of each delta, as the outer rules shard it
-        blocks = [local_block(wl - w0[None], (None,) + sp, mesh)
-                  for wl, w0, sp in zip(leaves(w_local), leaves(whole),
-                                        specs)]
     else:
         with use_rules(_local_rules(rules, fed)):
             w_local, losses = local(params, gb)
-        blocks = [wl - w0[None] for wl, w0 in zip(leaves(w_local), w0s)]
 
-    device = w0s[0].device
-    stale = torch.as_tensor(staleness, device=device).to(torch.float32)
-    wts = stacked_staleness_weights(stale, torch.ones_like(stale), fed.a)
-    a_t = mixing_alpha(stale, fed.alpha, fed.a)
-    rows = [d.reshape(g_loc, -1).to(torch.float32) for d in blocks]
-    metrics = {"alpha_t": a_t}
-
-    if fed.schedule == "psum":
-        # this rank's weighted partial sums, one flat vector
-        flat = torch.cat([torch.einsum("gn,g->n", r, wts[mine]) for r in rows])
-        if fgroup is not None:
-            dist.all_reduce(flat, group=fgroup)
-        us = list(torch.split(flat, [r.shape[1] for r in rows]))
-    else:
-        if fed.schedule == "gather_q":
-            dq, metrics["wire_bytes"] = _gather_q(rows, fed, fgroup, n_fed)
+    with span("fed.combine"):
+        if fed.group_parallelism == "dp":
+            # this rank's block of each delta, as the outer rules shard it
+            blocks = [local_block(wl - w0[None], (None,) + sp, mesh)
+                      for wl, w0, sp in zip(leaves(w_local), leaves(whole),
+                                            specs)]
         else:
-            flat = torch.cat(rows, dim=1)
-            dq = all_gather_dim(flat, 0, fgroup, n_fed)
-            metrics["wire_bytes"] = flat.numel() * 4
-            dq = list(torch.split(dq, [r.shape[1] for r in rows], dim=1))
-        us = [torch.einsum("gn,g->n", d, wts) for d in dq]
-    new = [(w + a_t * u.reshape(w.shape)).to(w.dtype)
-           for w, u in zip(w0s, us)]
+            blocks = [wl - w0[None] for wl, w0 in zip(leaves(w_local), w0s)]
 
-    # the whole round's metrics on every rank: a leaf replicated over the
-    # non-fed axes counts once, its share of each rank's sum
-    whole, _, n_all = axis_group(mesh, mesh.mesh_dim_names)
-    rest = n_all // n_fed
-    ss = sum(torch.sum(torch.square(d.to(torch.float32)))
-             * (axes_size(mesh, sp) / rest) for d, sp in zip(blocks, specs))
-    sums = torch.stack([losses.sum().to(torch.float32) / rest,
-                        ss.to(torch.float32)])
-    if whole is not None:
-        dist.all_reduce(sums, group=whole)
-    metrics["local_loss"] = sums[0] / G
-    metrics["delta_norm"] = torch.sqrt(sums[1])
+        device = w0s[0].device
+        stale = torch.as_tensor(staleness, device=device).to(torch.float32)
+        wts = stacked_staleness_weights(stale, torch.ones_like(stale), fed.a)
+        a_t = mixing_alpha(stale, fed.alpha, fed.a)
+        rows = [d.reshape(g_loc, -1).to(torch.float32) for d in blocks]
+        metrics = {"alpha_t": a_t}
+
+        if fed.schedule == "psum":
+            # this rank's weighted partial sums, one flat vector
+            flat = torch.cat([torch.einsum("gn,g->n", r, wts[mine])
+                              for r in rows])
+            if fgroup is not None:
+                dist.all_reduce(flat, group=fgroup)
+            us = list(torch.split(flat, [r.shape[1] for r in rows]))
+        else:
+            if fed.schedule == "gather_q":
+                dq, metrics["wire_bytes"] = _gather_q(rows, fed, fgroup,
+                                                      n_fed)
+            else:
+                flat = torch.cat(rows, dim=1)
+                dq = all_gather_dim(flat, 0, fgroup, n_fed)
+                metrics["wire_bytes"] = flat.numel() * 4
+                dq = list(torch.split(dq, [r.shape[1] for r in rows], dim=1))
+            us = [torch.einsum("gn,g->n", d, wts) for d in dq]
+        new = [(w + a_t * u.reshape(w.shape)).to(w.dtype)
+               for w, u in zip(w0s, us)]
+
+        # the whole round's metrics on every rank: a leaf replicated over
+        # the non-fed axes counts once, its share of each rank's sum
+        whole, _, n_all = axis_group(mesh, mesh.mesh_dim_names)
+        rest = n_all // n_fed
+        ss = sum(torch.sum(torch.square(d.to(torch.float32)))
+                 * (axes_size(mesh, sp) / rest)
+                 for d, sp in zip(blocks, specs))
+        sums = torch.stack([losses.sum().to(torch.float32) / rest,
+                            ss.to(torch.float32)])
+        if whole is not None:
+            dist.all_reduce(sums, group=whole)
+        metrics["local_loss"] = sums[0] / G
+        metrics["delta_norm"] = torch.sqrt(sums[1])
     return unflatten(names, new), metrics
 
 
@@ -324,13 +347,14 @@ def _gather_q(rows: List[torch.Tensor], fed: FedConfig, group, n_fed: int):
     ``compress_delta`` (kernel B's channel form with its wire), the levels
     (two a byte at ``p_q <= 4``) and scales all-gathered over the fed
     axes, dequantized.  -> (per leaf (G, n) f32, bytes this rank sent)."""
-    if fed.p_s < 1.0:
-        _, lvls, scales = ops.threshold_channel_leaves(
-            rows, fed.p_s, fed.p_q, fed.threshold_iters, wire=True)
-    else:   # keep-all: compress_delta itself (see make_fed_train_step)
-        pairs = [[compress_delta(r, fed) for r in rs] for rs in rows]
-        lvls = [torch.stack([p[0] for p in ps]) for ps in pairs]
-        scales = [torch.stack([p[1] for p in ps]) for ps in pairs]
+    with span("fed.compress"):
+        if fed.p_s < 1.0:
+            _, lvls, scales = ops.threshold_channel_leaves(
+                rows, fed.p_s, fed.p_q, fed.threshold_iters, wire=True)
+        else:   # keep-all: compress_delta itself (see make_fed_train_step)
+            pairs = [[compress_delta(r, fed) for r in rs] for rs in rows]
+            lvls = [torch.stack([p[0] for p in ps]) for ps in pairs]
+            scales = [torch.stack([p[1] for p in ps]) for ps in pairs]
     lens = [r.shape[1] for r in rows]
     flat = torch.cat(lvls, dim=1)
     wire = pack_int4(flat) if fed.p_q <= 4 else flat

@@ -72,6 +72,7 @@ from repro_torch.models.layers import (dense_init, embed_init, embed_lookup,
                                        mlp, mlp_init, rmsnorm, rmsnorm_init,
                                        vocab_parallel_nll)
 from repro_torch.sharding.rules import active_rules, tp_axis, use_rules
+from repro_torch.utils.spans import span
 from repro_torch.utils.tree import (leaves, paths, resolve_device,
                                    tree_map, tree_stack, unflatten)
 
@@ -112,7 +113,8 @@ class _Recompute(torch.autograd.Function):
                 full[i] = t
             return ctx.fn(*full)
 
-        _, vjp = torch.func.vjp(fn, *(ins[i] for i in diff))
+        with span("remat.recompute"):
+            _, vjp = torch.func.vjp(fn, *(ins[i] for i in diff))
         out = [None] * len(ins)
         # no graph of this backward: ``torch.func.grad`` differentiates
         # with ``create_graph``, which would keep the recomputed
@@ -485,6 +487,12 @@ def lm_loss(params, batch, cfg, window: int = 0, lb_weight: float = 0.01,
     each layer in the backward pass.  Where the rules split the
     vocabulary the head gives the rank's columns and the loss is
     Megatron's vocabulary-parallel cross entropy."""
+    with span("lm.loss"):
+        return _lm_loss(params, batch, cfg, window, lb_weight, remat,
+                        loss_chunk)
+
+
+def _lm_loss(params, batch, cfg, window, lb_weight, remat, loss_chunk):
     tokens = batch["tokens"]
     table = params["embed"] if cfg.tie_embeddings else None
     head = params.get("lm_head")
