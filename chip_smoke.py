@@ -130,10 +130,13 @@ Phases, in order; the script exits nonzero if any of them fails:
 24. LM serving at full width: Qwen3-1.7B (28 layers, d_model 2048, 16/8
    heads, qk-norm, tied vocab 151,936) from seeded random weights, the
    same batcher window as phase 8 (8 requests, prompt 512, gen 16, 4
-   slots; no kernel of the port on this path, so every counter must stay
-   0), solo ``generate`` of each (equal, or a near tie), prefill and
-   decode timed with their busy shares; then one 4,096-token prefill (the
-   flash branch) against the plain branch within ``FLASH_TOL``.
+   slots; kernels A, B and C off this path, so their counters must stay
+   0, and every prefill's attention on kernel D), solo ``generate`` of
+   each (equal, or a near tie), prefill and decode timed with their busy
+   shares; then one 4,096-token prefill on the route (kernel D), and with
+   the route closed on the flash branch and on the plain branch, each
+   branch counted in every layer, the route's and the flash branch's
+   logits within ``FLASH_TOL`` of the plain branch's.
 25. The hybrid at full width: Jamba v0.1 (d_model 4096, 16 experts top-2,
    Mamba N = 16 with 128 heads, vocab 65,536 untied) cut in depth to its
    first group of 8 layers (7 Mamba, 1 attention; 53 GB in f32), after
@@ -241,8 +244,9 @@ Phases, in order; the script exits nonzero if any of them fails:
    phase 27 holds C's gradient).
 38. Plain AdamW at full width: Qwen3-1.7B, 5 steps at batch 8 x 128 with
    ``--ckpt``: the loss on the first batch falls, peak memory and ms per
-   step printed, no kernel of the port runs, and the checkpoint loads
-   back equal.
+   step printed, kernels A, B and C do not run, kernel D runs its forward
+   and its backward once a layer and step on the card, and the checkpoint
+   loads back equal.
 39. The card against the CPU: SmolLM's smoke config, 3 fed rounds
    (gather_q) and 3 plain steps from the same weights (losses within
    1e-4; the fed params within a step, or a threshold flip on at most
@@ -280,8 +284,10 @@ Phases, in order; the script exits nonzero if any of them fails:
    ``lm_loss(loss_chunk=32, remat=True)`` against the same round without
    either, from the same weights (a plain round first, to warm up and
    keep the channel's rows): local losses within 1e-4, params within the
-   CPU tests' gather_q rule, 3 launches of B a round; each round's ms
-   and ``max_memory_allocated``.
+   CPU tests' gather_q rule, 3 launches of B a round, kernel D's calls
+   (remat: a forward a layer and step and again in the recompute, 120,
+   and a backward, 60; without: 60 and 60); each round's ms and
+   ``max_memory_allocated``.
 45. The dry run on this host (``launch/dryrun.py``, one process a record
    side by side, each joining a fake world of 256 ranks; the card is not
    used): Qwen3-1.7B's and Mamba2-370M's decode_32k on the 16 x 16 mesh,
@@ -329,9 +335,20 @@ Phases, in order; the script exits nonzero if any of them fails:
    its ms.  Kernel C against
    its plain version within ``SSD_TOL`` at the rank's shapes (2 and 8
    heads a rank) and at one head a rank (a half-empty head group), each
-   timed with its bound.  Then one JSON line of kernels, the card's
-   ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
-   {...}}``.
+   timed with its bound.
+50. Kernel D (``kernels/attention.py``, causal self-attention) at the
+   SmolLM-135M round's shape (48 sequences of 2,048, 9 q heads on 3 kv
+   heads, hd 64, f32) and at Qwen3-1.7B's 4,096-token prefill (16 on 8,
+   hd 128): the same bits on a second call, and the forward, the
+   log-sum-exp and the three gradients against the plain form on the
+   same card tensors within ``ATTN_TOL``, at the whole shape; then each
+   timed over 50 launches (CUDA events) with the profiler's device ms a
+   call (a window that recorded other than one forward or two backward
+   launches a call is taken again, up to ten windows), the plain form's
+   ms (forward; forward and backward) and the bounds (f32 FMAs; split
+   TF32).  Then one JSON line of kernels (A to D, D's forward and
+   backward as two entries), the card's ``nvidia-smi`` line, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Every card-against-CPU comparison asks for equal time, round and byte
 columns and accuracy within ``ACC_TOL``.
@@ -410,6 +427,10 @@ LOGIT_TOL = 1e-4                  # smoke prefill logits, card against CPU
 # Qwen3-1.7B's flash prefill against its plain branch, on the card: the
 # same f32 math with the softmax summed chunk by chunk
 FLASH_TOL = 1e-4
+# kernel D against the plain form on the card, relative to each tensor's
+# largest magnitude (at least 1): sums in another order, products in split
+# TF32 (tests/test_torch_attention_kernel.py's F32_TOL)
+ATTN_TOL = 1e-5
 # the decoder-only architectures of the port, at their smoke configs in
 # phase 26
 LM_ARCHS = ("qwen3_1_7b", "smollm_135m", "granite_34b", "phi3_5_moe_42b",
@@ -489,25 +510,38 @@ def kernel_device_ms(fn, name: str, reps: int = 20,
 
 
 def device_ms_per_call(fn, name: str, reps: int = 20,
-                       attempts: int = 3, by_kernel=None):
+                       attempts: int = 3, by_kernel=None, launches=None):
     """(milliseconds on the card per call of ``fn``, CUDA launches per
     call) summed over every kernel whose name holds ``name``, from
     torch.profiler over ``reps`` calls: a call that makes several
     launches (kernel B's wide route makes 3 or more an entry) counts all
     of them; ``by_kernel`` (a dict) receives each such kernel's ms per
-    call.  A window in which the profiler recorded no such kernel is
-    taken again, up to ``attempts`` windows, and the names it did record
-    are printed."""
+    call.  A window in which the profiler recorded no such kernel, or
+    (where ``launches``, the CUDA launches a call makes, is given) other
+    than ``launches`` a call, is taken again, up to ``attempts`` windows,
+    and the names it did record are printed.  Where ``launches`` is given
+    the profiler first traces one call of ``fn`` whose records it
+    discards (its schedule's warm-up step): windows without it lost one
+    record each, 19 of 20 launches in every one of ten."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
+    warm = launches is not None
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1) if warm else None) as prof:
+            if warm:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            if warm:
+                prof.step()
         total, count, seen = 0.0, 0, {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -518,12 +552,15 @@ def device_ms_per_call(fn, name: str, reps: int = 20,
                     if by_kernel is not None:
                         by_kernel[e.key] = e.self_device_time_total / 1e3 \
                             / reps
-        if count:
+        if count and (launches is None or count == launches * reps):
             return total / reps, count / reps
-        print(f"   (the profiler recorded no kernel named {name!r} in a "
-              f"window of {reps} calls; device events seen: "
+        print(f"   (the profiler recorded {count} launches of kernels named "
+              f"{name!r} in a window of {reps} calls"
+              + ("" if launches is None else f", not {launches * reps}")
+              + f"; device events seen: "
               f"{dict(list(seen.items())[:6]) or 'none'})")
-    raise RuntimeError(f"the profiler saw no kernel named {name!r}")
+    raise RuntimeError(f"the profiler did not record {name!r}'s launches "
+                       f"in any of {attempts} windows")
 
 
 def bwd_device_split(fn, reps: int = 20):
@@ -578,8 +615,11 @@ class Smoke:
         from repro_torch.configs.base import get_config, get_smoke_config
         self.np, self.torch = np, torch
         self.failures = []
+        # kernels whose launches read_counts() reads (kernel D's forward
+        # and backward calls as "attention" and "attention_bwd")
         self.kernels = {"fused_pack": {}, "topk_quant": {}, "ssd_scan": {},
-                        "ssd_scan_bwd": {}}
+                        "ssd_scan_bwd": {}, "attention": {},
+                        "attention_bwd": {}}
         self.dev = torch.device(dev)
         self.fleet = (n_devices, n_train, n_test)
         # SSM serving: Mamba2-370M at full width (a CPU rehearsal passes
@@ -668,16 +708,26 @@ class Smoke:
         return nvidia_smi() if self.dev.type == "cuda" else str(self.dev)
 
     def zero_counts(self):
-        from repro_torch.kernels import fused_pack, ssd_scan, topk_quant
+        from repro_torch.kernels import (attention, fused_pack, ssd_scan,
+                                         topk_quant)
         fused_pack.LAUNCHES = topk_quant.LAUNCHES = ssd_scan.LAUNCHES = 0
         ssd_scan.BWD_LAUNCHES = ssd_scan.BWD_PLAIN_ON_CUDA = 0
+        attention.FWD_LAUNCHES = attention.BWD_LAUNCHES = 0
 
     def read_counts(self):
-        from repro_torch.kernels import fused_pack, ssd_scan, topk_quant
+        from repro_torch.kernels import (attention, fused_pack, ssd_scan,
+                                         topk_quant)
         return {"fused_pack": fused_pack.LAUNCHES,
                 "topk_quant": topk_quant.LAUNCHES,
                 "ssd_scan": ssd_scan.LAUNCHES,
-                "ssd_scan_bwd": ssd_scan.BWD_LAUNCHES}
+                "ssd_scan_bwd": ssd_scan.BWD_LAUNCHES,
+                "attention": attention.FWD_LAUNCHES,
+                "attention_bwd": attention.BWD_LAUNCHES}
+
+    @staticmethod
+    def d_calls(launches):
+        """Kernel D's (forward, backward) calls in a ``read_counts``."""
+        return launches["attention"], launches["attention_bwd"]
 
     def no_plain_backward_on_card(self, where):
         """Fail if C's plain backward ran on a CUDA tensor since the counts
@@ -929,8 +979,9 @@ class Smoke:
             [w[k] for k in names])))
         self.sync()
         launches = self.read_counts()
-        del launches["ssd_scan"]          # not on this path
-        del launches["ssd_scan_bwd"]
+        for name in ("ssd_scan", "ssd_scan_bwd", "attention",
+                     "attention_bwd"):
+            del launches[name]            # not on this path
         rounds = hist[-1].round
         print(f"   rounds: {rounds}, dispatches {sim.stats.dispatches}, "
               f"completions {sim.stats.completions}")
@@ -2451,19 +2502,24 @@ class Smoke:
         cfg, shp = self.qwen_cfg, self.qwen_shape
         params = self.init_lm(cfg)
         run = self.serve_window(params, cfg, shp)
-        # no kernel of the port is on the attention path
-        self.expect(not any(run["launches"].values()),
-                    f"kernel launches on the attention path: "
-                    f"{run['launches']}")
-        # one long prompt: past the flash threshold, against the plain
-        # branch on the same device
+        # kernels A, B and C are off this path; on the card each request's
+        # prefill runs kernel D's forward once a layer (decode does not)
+        card = self.dev.type == "cuda"
+        want = dict.fromkeys(run["launches"], 0)
+        want["attention"] = shp["requests"] * cfg.n_layers if card else 0
+        self.expect(run["launches"] == want,
+                    f"kernel launches on the serving path: "
+                    f"{run['launches']}, expected {want}")
+        # one long prompt: past the flash threshold, on the route (kernel
+        # D on the card, the flash branch on the CPU), then with the route
+        # closed on the flash and the plain branch, on the same device
         n = shp["long_prompt"]
         toks = torch.as_tensor(np.random.RandomState(2).randint(
             0, cfg.vocab, (1, n)), device=self.dev)
-        # every call of either branch is counted, so the plain run is
-        # known to have taken the plain branch in each of its layers
-        branches = {"flash": 0, "plain": 0}
-        saved = {"flash": A._flash_attention, "plain": A._plain_attention}
+        # every call of either branch is counted, so each run is known to
+        # have taken its branch in each of its layers
+        branches = {"kernel": 0, "flash": 0, "plain": 0}
+        saved = {"flash": A._flash_attention, "plain": A.plain_attention}
 
         def counted(name):
             def call(*a, **k):
@@ -2471,41 +2527,55 @@ class Smoke:
                 return saved[name](*a, **k)
             return call
 
-        forward = A.attn_forward
-        A._flash_attention, A._plain_attention = (counted("flash"),
-                                                  counted("plain"))
+        forward, devices = A.attn_forward, A.KERNEL_DEVICES
+        A._flash_attention, A.plain_attention = (counted("flash"),
+                                                 counted("plain"))
+        taken, ms, out = {}, {}, {}
         try:
             with torch.no_grad():
-                ms_flash, (flash, _) = self.timed(
-                    lambda: T.prefill(params, {"tokens": toks}, cfg), 1)
-                in_flash = dict(branches)
-                branches.update(flash=0, plain=0)
-                A.attn_forward = lambda *a, **k: forward(
-                    *a, **dict(k, flash_threshold=1 << 30))
-                ms_plain, (plain, _) = self.timed(
-                    lambda: T.prefill(params, {"tokens": toks}, cfg), 1)
-                in_plain = dict(branches)
+                for name, route, thr in (("kernel", devices, 2048),
+                                         ("flash", (), 2048),
+                                         ("plain", (), 1 << 30)):
+                    A.KERNEL_DEVICES = route
+                    A.attn_forward = lambda *a, _t=thr, **k: forward(
+                        *a, **dict(k, flash_threshold=_t))
+                    branches.update(kernel=0, flash=0, plain=0)
+                    self.zero_counts()
+                    ms[name], (out[name], _) = self.timed(
+                        lambda: T.prefill(params, {"tokens": toks}, cfg), 1)
+                    branches["kernel"] = self.read_counts()["attention"]
+                    taken[name] = dict(branches)
         finally:
-            A.attn_forward = forward
+            A.attn_forward, A.KERNEL_DEVICES = forward, devices
             A._flash_attention = saved["flash"]
-            A._plain_attention = saved["plain"]
+            A.plain_attention = saved["plain"]
         L = cfg.n_layers
-        self.expect(in_flash == {"flash": L, "plain": 0}
-                    and in_plain == {"flash": 0, "plain": L},
-                    f"attention branches taken: {in_flash} in the flash "
-                    f"prefill, {in_plain} in the plain one; expected "
-                    f"{L} flash calls, then {L} plain ones")
-        err = float((flash - plain).abs().max())
-        self.expect(bool(torch.isfinite(flash).all()),
-                    "long prefill logits not finite")
-        self.expect(err <= FLASH_TOL, f"flash prefill logits differ from "
-                    f"the plain branch's by {err} > {FLASH_TOL}")
-        print(f"   prefill of 1 x {n} tokens: flash branch {ms_flash:.2f} ms,"
-              f" plain branch {ms_plain:.2f} ms (each in all {L} layers); "
-              f"logits within {err:.3g} (tolerance {FLASH_TOL}) "
-              f"[{self.card()}]")
-        run.update(long_prefill_flash_ms=ms_flash,
-                   long_prefill_plain_ms=ms_plain, flash_vs_plain=err)
+        first = "kernel" if card else "flash"
+        want = {"kernel": {"kernel": L if card else 0,
+                           "flash": 0 if card else L, "plain": 0},
+                "flash": {"kernel": 0, "flash": L, "plain": 0},
+                "plain": {"kernel": 0, "flash": 0, "plain": L}}
+        self.expect(taken == want, f"attention branches taken: {taken}; "
+                    f"expected {want} ({L} layers)")
+        errs = {}
+        for name in ("kernel", "flash"):
+            self.expect(bool(torch.isfinite(out[name]).all()),
+                        f"long prefill logits ({name}) not finite")
+            errs[name] = float((out[name] - out["plain"]).abs().max())
+            self.expect(errs[name] <= FLASH_TOL,
+                        f"{name} prefill logits differ from the plain "
+                        f"branch's by {errs[name]} > {FLASH_TOL}")
+        print(f"   prefill of 1 x {n} tokens: flash branch "
+              f"{ms['flash']:.2f} ms, plain branch {ms['plain']:.2f} ms, "
+              f"on the route ({first}) {ms['kernel']:.2f} ms (each in all "
+              f"{L} layers); logits within {errs['flash']:.3g} (flash) and "
+              f"{errs['kernel']:.3g} (route) of the plain branch's "
+              f"(tolerance {FLASH_TOL}) [{self.card()}]")
+        run.update(long_prefill_flash_ms=ms["flash"],
+                   long_prefill_plain_ms=ms["plain"],
+                   long_prefill_route_ms=ms["kernel"],
+                   flash_vs_plain=errs["flash"],
+                   route_vs_plain=errs["kernel"])
         self.lm["qwen"] = run
 
     # -- phase 25 -----------------------------------------------------------
@@ -4055,13 +4125,18 @@ class Smoke:
                   f"{before:.4f} -> {after:.4f}; peak memory "
                   f"{'not measured' if peak is None else f'{peak:.2f} GB'};"
                   f" {wall:.1f} s with the checkpoint; launches {launches} "
-                  f"(no kernel of the port on this path) [{self.card()}]")
+                  f"(kernels A-C off this path) [{self.card()}]")
             self.expect(after < before, f"the loss on the first batch did "
                         f"not fall: {before} -> {after}")
             self.expect(all(math.isfinite(x) for x in losses),
                         f"losses not finite: {losses}")
-            self.expect(sum(launches.values()) == 0, f"a kernel of the "
-                        f"port ran: {launches}")
+            # kernel D: a forward and a backward a layer and step
+            want = dict.fromkeys(launches, 0)
+            if card:
+                want["attention"] = want["attention_bwd"] = \
+                    cfg.n_layers * shp["steps"]
+            self.expect(launches == want, f"kernel launches of the plain "
+                        f"steps: {launches}, expected {want}")
             t0 = time.perf_counter()
             back = load_pytree(path, params, device=self.dev)
             same = all(torch.equal(a, b) for a, b in
@@ -4512,11 +4587,20 @@ class Smoke:
             self.sync()
             ms = (time.perf_counter() - t0) * 1e3
             launches = self.read_counts()
+            attn = self.d_calls(launches)
             peak = torch.cuda.max_memory_allocated() if card else 0
             self.expect(launches["topk_quant"] == (per_round if card
                                                    else 0),
                         f"kernel B's launches in the {name} round: "
                         f"{launches}")
+            # kernel D: a forward a layer and local step, again in the
+            # recompute, and a backward; the 4 groups in one call each
+            steps = cfg.n_layers * 2
+            want = ((2 * steps if name == "remat" else steps), steps)
+            self.expect(attn == (want if card else (0, 0)),
+                        f"kernel D's forward and backward calls in the "
+                        f"{name} round: {attn}, expected "
+                        f"{want if card else (0, 0)}")
             res[name] = dict(params=params, metrics=m, ms=ms, peak=peak,
                              above=peak - base, launches=launches)
             del params, m
@@ -4539,7 +4623,9 @@ class Smoke:
               f"max_memory_allocated plain {plain['peak'] * gb:.3f} GB "
               f"({plain['above'] * gb:.3f} above the inputs), remat "
               f"{remat['peak'] * gb:.3f} GB ({remat['above'] * gb:.3f}); "
-              f"B launches {per_round} a round [{self.card()}]")
+              f"B launches {per_round} a round; kernel D's forward and "
+              f"backward calls remat {self.d_calls(remat['launches'])}, "
+              f"plain {self.d_calls(plain['launches'])} [{self.card()}]")
         self.dryrun["remat_round"] = {
             k: {"ms": v["ms"], "max_memory_allocated": v["peak"],
                 "above_inputs": v["above"]} for k, v in res.items()}
@@ -5376,6 +5462,109 @@ class Smoke:
               f"equal; ms per step seqshard median {med(ms_shard):.2f}, "
               f"plain median {med(ms_plain):.2f} [{self.card()}]")
 
+    # -- phase 50 -----------------------------------------------------------
+    def kernel_d(self):
+        """Kernel D against the plain form on the card, then timed, at the
+        SmolLM-135M round's shape and Qwen3-1.7B's 4,096-token prefill."""
+        torch = self.torch
+        from repro_torch.kernels import attention as D
+        f32 = torch.float32
+        for name, B, S, H, G, hd in (("smollm_round", 48, 2048, 9, 3, 64),
+                                     ("qwen_prefill_4096", 1, 4096, 16, 8,
+                                      128)):
+            g = torch.Generator(device=self.dev).manual_seed(50)
+            mk = lambda *s: torch.randn(*s, generator=g,  # noqa: E731
+                                        device=self.dev, dtype=f32)
+            q, k, v = mk(B, S, H, hd), mk(B, S, G, hd), mk(B, S, G, hd)
+            do = mk(B, S, H, hd)
+            # the whole shape: the kernel twice (the same bits), then the
+            # plain form's log-sum-exp, output and gradients, one at a time
+            runs = []
+            for _ in range(2):
+                o, lse = D.CausalAttention.apply(q, k, v)
+                runs.append((o, lse) + D.CausalAttentionBwd.apply(
+                    q, k, v, o, lse, do))
+            self.expect(all(torch.equal(a, b) for a, b in zip(*runs)),
+                        f"kernel D ({name}) gave other bits on a second "
+                        f"call")
+            got = dict(zip(("o", "lse", "dq", "dk", "dv"), runs[0]))
+            del runs
+            errs = {}
+
+            def compare(what, want):
+                a = got.pop(what)
+                scale = max(1.0, float(want.abs().max()))
+                errs[what] = float((a - want).abs().max()) / scale
+                self.expect(bool(torch.isfinite(a).all()),
+                            f"kernel D {what} ({name}) not finite")
+                self.expect(errs[what] <= ATTN_TOL,
+                            f"kernel D {what} ({name}) differs from the "
+                            f"plain form by {errs[what]:.3g} of its "
+                            f"largest magnitude > {ATTN_TOL}")
+
+            compare("lse", D._plain_lse(q, k))
+            wo, wvjp = torch.func.vjp(D.causal_attention_plain, q, k, v)
+            compare("o", wo)
+            del wo
+            for what, want in zip(("dq", "dk", "dv"), wvjp(do)):
+                compare(what, want)
+            del wvjp, want
+            fwd = lambda: D.CausalAttention.apply(q, k, v)  # noqa: E731
+            bwd = lambda: D.CausalAttentionBwd.apply(  # noqa: E731
+                q, k, v, o, lse, do)
+            ms_f, ms_b = time_cuda(fwd), time_cuda(bwd)
+            # one launch a forward call, two a backward call; a profiler
+            # window that recorded other counts is taken again (windows
+            # with no device record, or one record short, came 3 in a row
+            # after phases 24-44; each costs under a second)
+            dev_f = device_ms_per_call(fwd, "attn_fwd", attempts=10,
+                                       launches=1)[0]
+            dev_b = device_ms_per_call(bwd, "attn_bwd", attempts=10,
+                                       launches=2)[0]
+
+            def plain_fwd():
+                with torch.no_grad():
+                    return D.causal_attention_plain(q, k, v)
+
+            def plain_both():
+                qq = q.detach().requires_grad_(True)
+                return torch.autograd.grad(
+                    D.causal_attention_plain(qq, k, v), qq, do)
+
+            plain_f = time_cuda(plain_fwd, iters=5, warmup=1)
+            plain_fb = time_cuda(plain_both, iters=3, warmup=1)
+            # the causal half counted once: 2 products forward, 5 backward
+            half = B * H * hd * S * (S + 1) // 2
+            ops_f, ops_b = 4 * half, 10 * half
+            bound = {"f32_fwd": ops_f / PEAK_F32_OPS_PER_S * 1e3,
+                     "f32_bwd": ops_b / PEAK_F32_OPS_PER_S * 1e3,
+                     "tf32x3_fwd": 3 * ops_f / PEAK_TF32_OPS_PER_S * 1e3,
+                     "tf32x3_bwd": 3 * ops_b / PEAK_TF32_OPS_PER_S * 1e3}
+            print(f"   {name} (B {B}, S {S}, {H} q / {G} kv heads, hd "
+                  f"{hd}): max err / largest {max(errs.values()):.3g} "
+                  f"(tolerance {ATTN_TOL}; {errs}); forward {ms_f:.3f} ms "
+                  f"(device {dev_f:.3f}), backward {ms_b:.3f} ms (device "
+                  f"{dev_b:.3f}); plain forward {plain_f:.2f} ms, plain "
+                  f"forward + backward {plain_fb:.2f} ms; bound forward "
+                  f"{bound['f32_fwd']:.3f} (f32) / "
+                  f"{bound['tf32x3_fwd']:.3f} (split TF32), backward "
+                  f"{bound['f32_bwd']:.3f} / {bound['tf32x3_bwd']:.3f} ms "
+                  f"[{self.card()}]")
+            self.kernels["attention"][name] = {
+                "B": B, "S": S, "H": H, "G": G, "hd": hd, "errs": errs,
+                "fwd_ms": ms_f, "fwd_device_ms": dev_f,
+                "plain_fwd_ms": plain_f, "ops_fwd": ops_f,
+                "f32_fwd": bound["f32_fwd"],
+                "tf32x3_fwd": bound["tf32x3_fwd"]}
+            self.kernels["attention_bwd"][name] = {
+                "bwd_ms": ms_b, "bwd_device_ms": dev_b,
+                "plain_fwd_bwd_ms": plain_fb, "ops_bwd": ops_b,
+                "f32_bwd": bound["f32_bwd"],
+                "tf32x3_bwd": bound["tf32x3_bwd"]}
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+
+
 def get_full(cfg):
     """The registry's full config of the architecture behind ``cfg``."""
     from repro_torch.configs.base import get_config
@@ -5739,6 +5928,8 @@ def main() -> int:
          s.tp_rank),
         ("49. head-parallel Mamba2: rank 0 of a fake world of 16",
          s.ssm_tp_rank),
+        ("50. kernel D (causal attention) at the SmolLM round's shape",
+         s.kernel_d),
     ]
     chosen = None
     if sys.argv[1:2] == ["--phases"]:
@@ -5760,10 +5951,7 @@ def main() -> int:
         print(f"phases {sorted(chosen)} passed; the kernels line and the "
               f"result line come only from a run of every phase")
         return 0
-    print(json.dumps({"kernels": [s.kernels["fused_pack"],
-                                  s.kernels["topk_quant"],
-                                  s.kernels["ssd_scan"],
-                                  s.kernels["ssd_scan_bwd"]]}))
+    print(json.dumps({"kernels": [s.kernels[k] for k in s.kernels]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

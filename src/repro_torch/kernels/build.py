@@ -9,7 +9,9 @@ process, all started together, and one more ``nvcc`` links the objects.
 A failed build raises with ``nvcc``'s own error output.
 
 Nothing here runs when the module is imported: the CPU tests import every
-module of the port, on a machine with no ``nvcc``.
+module of the port, on a machine with no ``nvcc``.  The wrappers' shared
+helpers sit at the end: their inputs made ready for a launch, the raw
+stream handle, and the fold of a ``vmap`` axis into a leading axis.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import tempfile
 from pathlib import Path
 from typing import List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
@@ -33,9 +37,9 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v"]
 # Kernels A and B are bit-exact with XLA: -fmad=false forbids contracting
 # a*b+c into one FMA, so every f32 rounding is XLA's.  Kernel C
-# (ssd_scan.cu) and its backward (ssd_scan_bwd.cu) answer to an f32
-# tolerance and are bound by FFMA throughput, which that flag would halve,
-# so they compile without it.
+# (ssd_scan.cu) and its backward (ssd_scan_bwd.cu), and kernel D
+# (attention.cu), answer to an f32 tolerance and are bound by arithmetic
+# throughput, which that flag would cut, so they compile without it.
 EXTRA_FLAGS = {"fused_pack.cu": ["-fmad=false"],
                "topk_quant.cu": ["-fmad=false"]}
 
@@ -144,6 +148,10 @@ def library() -> ctypes.CDLL:
     lib.ssd_scan_bwd_run.restype = i32
     lib.ssd_scan_bwd_attrs.argtypes = [i32, ctypes.POINTER(i32)]
     lib.ssd_scan_bwd_attrs.restype = i32
+    lib.attn_fwd_run.argtypes = [ctypes.POINTER(i64)]
+    lib.attn_fwd_run.restype = i32
+    lib.attn_bwd_run.argtypes = [ctypes.POINTER(i64)]
+    lib.attn_bwd_run.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -154,3 +162,32 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+# -- the wrappers' shared helpers ----------------------------------------
+def ready(t: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``t`` in ``dtype`` (if given), contiguous at a 16-byte-aligned
+    address (the kernels read 16 bytes at a time; a view may start
+    anywhere); ``t`` itself where it already is."""
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    if not t.is_contiguous():
+        t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _current_stream(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# the current CUDA stream of a device (by index) as an integer handle; the
+# raw form costs a tenth of ``current_stream`` (chip_smoke.py phase 27's
+# host steps)
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _current_stream)
+
+
+def fold(n, t, d):
+    """``t`` with its mapped axis ``d`` (None: not mapped, so expanded)
+    folded into its leading axis: (n, G, ...) -> (n G, ...)."""
+    t = t.expand((n,) + t.shape) if d is None else t.movedim(d, 0)
+    return t.reshape((-1,) + t.shape[2:])

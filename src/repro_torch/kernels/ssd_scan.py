@@ -56,6 +56,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import fold, raw_stream, ready
 
 MAX_L, MAX_P, MAX_N = 256, 64, 128
 
@@ -338,15 +339,6 @@ def bwd_layout(G: int, heads: int, L: int, P: int, N: int, bf16: bool,
 _LOCAL = threading.local()
 
 
-def _current_stream(index: int) -> int:
-    return torch.cuda.current_stream(index).cuda_stream
-
-
-# the current CUDA stream of a device (by index) as an integer handle; the
-# raw form costs a tenth of ``current_stream`` (phase 27's host steps)
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _current_stream)
-
-
 def _ssd_intra_chunk_bwd_cuda(xb, b, c, cum, gy, gs, ga, heads,
                               route=None, per=None):
     """The backward kernel on contiguous, 16-byte-aligned CUDA tensors (gy,
@@ -370,7 +362,7 @@ def _ssd_intra_chunk_bwd_cuda(xb, b, c, cum, gy, gs, ga, heads,
     args[:] = (xb.data_ptr(), b.data_ptr(), c.data_ptr(), cum.data_ptr(),
                gy.data_ptr(), gs.data_ptr(), ga.data_ptr(), o + 4 * lay.dx,
                o + 4 * lay.db, o + 4 * lay.dc, o + 4 * lay.dcum,
-               0 if ws is None else ws.data_ptr(), _raw_stream(dev.index),
+               0 if ws is None else ws.data_ptr(), raw_stream(dev.index),
                *lay.args)
     build.check(build.library().ssd_scan_bwd_run(args),
                 "ssd_scan backward kernel")
@@ -382,25 +374,14 @@ def _ssd_intra_chunk_bwd_cuda(xb, b, c, cum, gy, gs, ga, heads,
             out.as_strided((G, 1, L), (L, L, 1), lay.dcum))
 
 
-def _ready(t: torch.Tensor, dtype=None) -> torch.Tensor:
-    """``t`` in ``dtype`` (if given), contiguous at a 16-byte-aligned
-    address (the backward kernel reads 16 bytes at a time; a view may
-    start anywhere); ``t`` itself where it already is."""
-    if dtype is not None and t.dtype != dtype:
-        t = t.to(dtype)
-    if not t.is_contiguous():
-        t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _intra_chunk_bwd(xb, b, c, cum, gy, gs, ga, heads):
     """Kernel C's backward on CUDA tensors (a build or launch failure
     raises), the plain backward on CPU and meta tensors."""
     if xb.device.type == "cuda":
         f32 = torch.float32
         dx, db, dc, dcum = _ssd_intra_chunk_bwd_cuda(
-            _ready(xb), _ready(b), _ready(c), _ready(cum), _ready(gy, f32),
-            _ready(gs, f32), _ready(ga, f32), heads)
+            ready(xb), ready(b), ready(c), ready(cum), ready(gy, f32),
+            ready(gs, f32), ready(ga, f32), heads)
         if b.dtype != f32:
             db, dc = db.to(b.dtype), dc.to(c.dtype)
         return dx, db, dc, dcum
@@ -408,13 +389,6 @@ def _intra_chunk_bwd(xb, b, c, cum, gy, gs, ga, heads):
         return ssd_intra_chunk_bwd_plain(xb, b, c, cum, gy, gs, ga, heads)
     raise ValueError(f"ssd_intra_chunk's backward runs on cuda or cpu, not "
                      f"{xb.device}")
-
-
-def _fold(n, t, d):
-    """``t`` with its mapped axis ``d`` (None: not mapped, so expanded)
-    folded into the cell axis: (n, G, ...) -> (n G, ...)."""
-    t = t.expand((n,) + t.shape) if d is None else t.movedim(d, 0)
-    return t.reshape((-1,) + t.shape[2:])
 
 
 class SSDIntraChunkBwd(torch.autograd.Function):
@@ -443,7 +417,7 @@ class SSDIntraChunkBwd(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, xb, b, c, cum, gy, gs, ga, heads):
         n = info.batch_size
-        out = SSDIntraChunkBwd.apply(*(_fold(n, t, d) for t, d in zip(
+        out = SSDIntraChunkBwd.apply(*(fold(n, t, d) for t, d in zip(
             (xb, b, c, cum, gy, gs, ga), in_dims[:7])), heads)
         return (tuple(o.reshape((n, -1) + o.shape[1:]) for o in out),
                 (0, 0, 0, 0))
@@ -480,7 +454,7 @@ class SSDIntraChunk(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, xb, b, c, cum, heads):
         n = info.batch_size
-        out = SSDIntraChunk.apply(*(_fold(n, t, d) for t, d in
+        out = SSDIntraChunk.apply(*(fold(n, t, d) for t, d in
                                     zip((xb, b, c, cum), in_dims)), heads)
         return (tuple(o.reshape((n, -1) + o.shape[1:]) for o in out),
                 (0, 0, 0))

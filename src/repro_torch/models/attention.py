@@ -1,5 +1,7 @@
 """GQA attention, in PyTorch: prefill (plain or flash-chunked), encoder,
-cross attention, and one-token decode over a KV cache.
+cross attention, and one-token decode over a KV cache.  Causal
+self-attention without a window on CUDA tensors runs on kernel D
+(``kernels/attention.py``), the same function with no S x S matrix.
 
 The JAX package's ``models/attention.py`` written in tensor ops, with its
 einsums, masks and order of operations: scores are f32 products divided
@@ -39,17 +41,22 @@ under the rules), the whole cache otherwise.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.attention import (NEG_INF, causal_attention,
+                                           causal_mask, grouped_out,
+                                           grouped_scores, plain_attention)
 from repro_torch.models.layers import (dense_init, head_rmsnorm,
                                        init_device, rotary)
 from repro_torch.sharding.rules import copy_to, gather, psum, tp_axis
 
-NEG_INF = -1e30
+# devices whose causal self-attention runs on kernel D
+# (``kernels/attention.py``); its Functions take the plain form on CPU
+# tensors, where the tests open the route to hold its other conditions
+KERNEL_DEVICES = ("cuda",)
 
 Params = Dict[str, torch.Tensor]
 
@@ -210,35 +217,6 @@ def _heads_kv(p: Params, plan: _Plan, src, positions, cfg, rope: bool,
     return k, v, None, None
 
 
-def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q: (B,Sq,H,hd), k: (B,Sk,G,hd) with H = G*rep -> (B,G,rep,Sq,Sk)
-    f32 scores, divided by sqrt(hd) after the product."""
-    B, Sq, H, hd = q.shape
-    G = k.shape[2]
-    q = q.reshape(B, Sq, G, H // G, hd)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", q.to(torch.float32),
-                     k.to(torch.float32))
-    return s / math.sqrt(hd)
-
-
-def _grouped_out(probs: torch.Tensor, v: torch.Tensor, out_dtype
-                 ) -> torch.Tensor:
-    """probs: (B,G,rep,Sq,Sk), v: (B,Sk,G,hd) -> (B,Sq,H,hd)."""
-    B, G, rep, Sq, _ = probs.shape
-    o = torch.einsum("bgrqk,bkgd->bqgrd",
-                     probs.to(v.dtype).to(torch.float32),
-                     v.to(torch.float32))
-    return o.reshape(B, Sq, G * rep, -1).to(out_dtype)
-
-
-def _plain_attention(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    s = _grouped_scores(q, k)
-    if mask is not None:
-        s = torch.where(mask, s, NEG_INF)   # mask broadcasts over (B,G,rep)
-    probs = torch.softmax(s, dim=-1)
-    return _grouped_out(probs, v, q.dtype)
-
-
 def _flash_attention(q, k, v, *, causal: bool, window: int = 0,
                      q_chunk: int = 1024, kv_chunk: int = 1024
                      ) -> torch.Tensor:
@@ -275,7 +253,7 @@ def _flash_attention(q, k, v, *, causal: bool, window: int = 0,
             start = min(ki * kv_chunk, Sk_pad - kv_chunk)
             kc = k[:, start:start + kv_chunk]
             vc = v[:, start:start + kv_chunk]
-            s = _grouped_scores(qc, kc)                   # (B,G,rep,qc,kc)
+            s = grouped_scores(qc, kc)                    # (B,G,rep,qc,kc)
             k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
             msk = (k_pos < Sk)[None, :].expand(q_chunk, kv_chunk)
             if causal:
@@ -303,8 +281,10 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
                  *, causal: bool = True, enc_out=None, window: int = 0,
                  flash_threshold: int = 2048, return_kv: bool = False):
     """Full-sequence attention (prefill / encoder / cross).  x: (B,S,D),
-    positions: (B,S); the flash form once a side exceeds
-    ``flash_threshold``."""
+    positions: (B,S).  Causal self-attention without a window on CUDA
+    tensors runs on kernel D (``kernels/attention.py``) at any length;
+    otherwise the flash form once a side exceeds ``flash_threshold``, the
+    plain form below it."""
     B, S, _ = x.shape
     rope = enc_out is None
     p, plan, g = _tp_layer(p, cfg)
@@ -323,19 +303,23 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
         kc = vc = None
 
     Sk = k.shape[1]
-    if max(S, Sk) > flash_threshold:
+    if causal and enc_out is None and not window and \
+            q.device.type in KERNEL_DEVICES:
+        # kernel D at every length: the plain and flash forms' function,
+        # with no S x S matrix in device memory
+        o = causal_attention(q, k, v)
+    elif max(S, Sk) > flash_threshold:
         o = _flash_attention(q, k, v, causal=causal and enc_out is None,
                              window=window)
     else:
         mask = None
         if causal and enc_out is None:
-            mask = torch.ones((S, Sk), dtype=torch.bool,
-                              device=x.device).tril()
+            mask = causal_mask(S, Sk, x.device)
             if window:
                 i = torch.arange(S, device=x.device)[:, None]
                 j = torch.arange(Sk, device=x.device)[None, :]
                 mask &= (i - j) < window
-        o = _plain_attention(q, k, v, mask)
+        o = plain_attention(q, k, v, mask)
     o = psum(o.reshape(B, S, -1) @ p["wo"], g)
     if return_kv:
         return o, {"k": k if kc is None else kc, "v": v if vc is None else vc}
@@ -444,11 +428,11 @@ def attn_decode(p: Params, x: torch.Tensor, pos, cfg, cache: Params, *,
 
     if kvs is not None:
         k, v = _select_heads(k, kvs), _select_heads(v, kvs)
-    s = _grouped_scores(q, k)                             # (B,G,rep,1,L)
+    s = grouped_scores(q, k)                              # (B,G,rep,1,L)
     if mask is not None:
         s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
     probs = torch.softmax(s, dim=-1)
-    o = _grouped_out(probs, v, x.dtype)                   # (B,1,H,hd)
+    o = grouped_out(probs, v, x.dtype)                    # (B,1,H,hd)
     return psum(o.reshape(B, 1, -1) @ p["wo"], g), new_cache
 
 
@@ -496,7 +480,7 @@ def attn_decode_seqshard(p: Params, x: torch.Tensor, pos, cfg,
         kc[:, slot] = k_new[:, 0].to(kc.dtype)
         vc[:, slot] = v_new[:, 0].to(vc.dtype)
 
-    s = _grouped_scores(q, kc)                             # (B,G,rep,1,L_loc)
+    s = grouped_scores(q, kc)                              # (B,G,rep,1,L_loc)
     gidx = r * L_loc + torch.arange(L_loc, device=x.device)
     s = torch.where(gidx <= pos, s, NEG_INF)
     m = pmax(s.amax(dim=-1), group)                        # (B,G,rep,1)

@@ -165,7 +165,7 @@ def test_flash_attention_matches_jax(S, q_chunk, kv_chunk, causal, window):
     if causal:
         i, j = np.arange(S)[:, None], np.arange(S)[None, :]
         mask = (j <= i) & ((i - j) < window if window else True)
-    plain = A._plain_attention(*map(torch.from_numpy, (q, k, v)),
+    plain = A.plain_attention(*map(torch.from_numpy, (q, k, v)),
                                None if mask is None else
                                torch.from_numpy(np.asarray(mask)))
     _close(got, plain)
